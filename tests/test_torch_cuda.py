@@ -1,0 +1,106 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU
+and skip without one. They import no JAX; on a machine with a card and
+no JAX, run them without the JAX conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpusparse_torch import CsrMatrix, cg_solve, plan_matrix, spmv
+from tpusparse_torch.io import generators as gen
+from tpusparse_torch.io.market import read_market
+from tpusparse_torch.kernels import dia_stream, merge_spmv
+from tpusparse_torch.ops.reference import csr_matvec
+
+pytestmark = pytest.mark.cuda
+
+ROOT = Path(__file__).resolve().parent.parent
+U = 2.0 ** -24
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _x(n, seed, dev, shape=None):
+    x = np.random.default_rng(seed).standard_normal(shape or n)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("L", [1, 4])
+def test_k1_matches_plain(cuda, L):
+    csr = gen.make_laplacian_grid3d(16).to_csr()
+    D = plan_matrix(csr, "auto", device=cuda).dia
+    XT = _x(None, L, cuda, (L, csr.num_cols))
+    before = dia_stream.LAUNCHES
+    Y = dia_stream.spmm_dia_stream_t(D, XT)
+    assert dia_stream.LAUNCHES == before + 1
+    Yp = dia_stream.spmm_dia_masked_plain(D, XT)
+    absD = dia_stream.from_mask_words(D.num_rows, D.num_cols, D.offsets,
+                                      D.vals.abs().cpu().numpy(),
+                                      D.mask.cpu().numpy(), cuda)
+    AX = dia_stream.spmm_dia_masked_plain(absD, XT.abs().double())
+    assert torch.all((Y - Yp).abs().double() <= 2 * len(D.offsets) * U * AX)
+
+
+CASES = {
+    "wheel-5000": lambda: gen.make_wheel(5000).to_csr(),
+    "rmat-12": lambda: gen.make_rmat(12).to_csr(),
+    "bibd_9_3": lambda: read_market(ROOT / "data/real/bibd_9_3.mtx").to_csr(),
+    "empty-rows": lambda: CsrMatrix(6, 5, np.array([0, 0, 2, 2, 2, 3, 3]),
+                                    np.array([1, 4, 0]),
+                                    np.array([1.0, 2.0, 3.0])),
+    "nnz-0": lambda: CsrMatrix(4, 4, np.zeros(5, np.int32),
+                               np.zeros(0, np.int32), np.zeros(0)),
+    "n-0": lambda: CsrMatrix(0, 3, np.zeros(1, np.int32),
+                             np.zeros(0, np.int32), np.zeros(0)),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_k2_matches_float64_and_repeats_bitwise(cuda, name):
+    M = merge_spmv.to_device_merge(CASES[name](), cuda)
+    x = _x(M.num_cols, 5, cuda)
+    y1 = merge_spmv.merge_matvec(M, x)
+    y2 = merge_spmv.merge_matvec(M, x)
+    assert torch.equal(y1, y2) and y1.shape == (M.num_rows,)
+    args = (M.num_rows, M.row_offsets, M.col_indices)
+    y64 = csr_matvec(*args, M.values.double(), x.double())
+    ax = csr_matvec(*args, M.values.abs().double(), x.abs().double())
+    nnz_i = (M.row_offsets[1:] - M.row_offsets[:-1]).double()
+    assert torch.all((y1.double() - y64).abs() <= (nnz_i + 2) * U * ax)
+
+
+def test_cg_on_card_matches_cpu(cuda):
+    csr = gen.make_laplacian_grid3d(12).to_csr()
+    b = _x(csr.num_rows, 1, "cpu")
+    r_cpu = cg_solve(plan_matrix(csr, "auto", device="cpu"), b)
+    before = dia_stream.LAUNCHES
+    r = cg_solve(plan_matrix(csr, "auto", device=cuda), b.to(cuda))
+    assert dia_stream.LAUNCHES > before
+    assert r.converged and abs(r.iterations - r_cpu.iterations) <= 1
+    assert torch.linalg.norm(r.x.cpu() - r_cpu.x) \
+        <= 1e-4 * torch.linalg.norm(r_cpu.x)
+
+
+def test_no_fallback_on_cuda_tensors(cuda):
+    csr = gen.make_laplacian_grid2d(4).to_csr()
+    A = plan_matrix(csr, "auto", device=cuda)
+    with pytest.raises(TypeError):
+        dia_stream.spmm_dia_stream_t(A.dia, torch.zeros(1, 16, device=cuda,
+                                                        dtype=torch.float64))
+    M = plan_matrix(csr, "merge", device=cuda)
+    with pytest.raises(ValueError, match="same device"):
+        merge_spmv.merge_matvec(M, torch.zeros(16))
+    y = spmv(M, torch.ones(16, device=cuda))
+    assert y.is_cuda

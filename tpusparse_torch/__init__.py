@@ -1,0 +1,48 @@
+"""tpusparse_torch — the PyTorch/CUDA port of ``tpusparse``.
+
+The JAX package ``tpusparse`` stays beside this one as the reference
+each part of the port is held against. This package imports ``torch``,
+numpy and scipy, and never ``jax`` or ``tpusparse``: it carries its own
+numpy host layer.
+
+Layering mirrors ``tpusparse``:
+
+    formats/   COO, host CSR (+ ``to(device)``), DIA partition (numpy)
+    io/        .mtx reader, synthetic generators (numpy)
+    ops/       plan_matrix / spmv dispatch, hybrid DIA + merge, BLAS-1
+    kernels/   hand-written CUDA kernels (``csrc/``) and their plain
+               PyTorch versions, which serve CPU tensors only
+    solvers/   conjugate gradient
+    bench/     CUDA-event timing, flop and byte models
+    utils/     result comparison, carrying JAX plans across
+
+The main path is host ingest -> ``plan_matrix(csr, "auto",
+device=...)`` -> ``spmv`` / ``cg_solve``.
+"""
+
+__version__ = "0.1.0"
+
+from tpusparse_torch.formats.coo import CooMatrix
+from tpusparse_torch.formats.csr import CsrMatrix
+from tpusparse_torch.io.market import read_market
+from tpusparse_torch.ops.spmv import (
+    SpmvStrategy,
+    plan_kind,
+    plan_matrix,
+    plan_semantics,
+    spmv,
+)
+from tpusparse_torch.solvers.cg import CgResult, cg_solve
+
+__all__ = [
+    "CgResult",
+    "CooMatrix",
+    "CsrMatrix",
+    "SpmvStrategy",
+    "cg_solve",
+    "plan_kind",
+    "plan_matrix",
+    "plan_semantics",
+    "read_market",
+    "spmv",
+]

@@ -1,0 +1,229 @@
+// K2 — merge-path CSR SpMV for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel tpusparse/kernels/merge_spmv.py::
+// _spmv_tiles (body _fused_kernel). The TPU kernel re-designed the
+// SC'16 merge-based SpMV (Merrill & Garland) around static tiles planned
+// on the host; on a GPU the original pipeline fits again, and this is it
+// (the CUB pipeline dispatch_spmv_orig.cuh: search -> consume -> fix-up):
+//
+//   1. search:  one thread per CTA tile binary-searches the merge path
+//               of (row end offsets, nonzero indices) for the tile's
+//               start coordinate (row, nz).
+//   2. consume: each CTA stages its tile's products vals * x[col] and
+//               row end offsets in shared memory; each thread searches
+//               its own start inside the tile and walks kItems merge
+//               items serially, writing every row it completes. A
+//               thread's first completed row may have begun in earlier
+//               threads: a CTA-wide inclusive scan of (completed-a-row,
+//               partial) pairs supplies that head. The last partial of
+//               the CTA (its carry-out) goes to scratch with its row.
+//   3. fix-up:  the first CTA of each run of carry-outs on the same row
+//               adds the run, in CTA order, into y.
+//
+// No float atomics: every sum has a fixed order, so two runs give
+// bitwise equal y. Empty rows, a row spanning many CTAs, rectangular
+// matrices, nnz = 0 and n = 0 need no special path: the merge path
+// covers num_rows + nnz items exactly and every row is completed once.
+//
+// Bound: bytes and gather latency. Per nonzero 8 B of column index and
+// value stream once; x is gathered (4 B, cached when columns cluster);
+// per row 4 B of offsets and 4 B of y. Equal work per CTA whatever the
+// row lengths is what the merge path buys; the coalesced staging of the
+// nonzero streams into shared memory is what keeps the streams at full
+// width. Vector loads and a warp-level reduce-by-key are later work.
+
+#include <climits>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlock = 128;                   // threads per CTA
+constexpr int kItems = 8;                     // merge items per thread
+constexpr int kTileItems = kBlock * kItems;   // merge items per CTA
+constexpr int kSearchThreads = 256;
+
+struct Coord {
+  int row;
+  int nz;
+};
+
+// The split of merge-path diagonal `diag` between list A = row_end[0 ..
+// a_len) (the end offset of each row) and list B = nz_begin, nz_begin+1,
+// ... (b_len nonzero indices). A row end comes first on the path when it
+// is <= the nonzero index it is compared with. Returns (rows, nonzeros)
+// consumed before the diagonal.
+__device__ __forceinline__ Coord merge_path_search(long long diag,
+                                                   const int* row_end,
+                                                   int a_len, int nz_begin,
+                                                   int b_len) {
+  long long lo = diag - b_len > 0 ? diag - b_len : 0;
+  long long hi = diag < a_len ? diag : a_len;
+  while (lo < hi) {
+    const long long pivot = (lo + hi) >> 1;
+    if (static_cast<long long>(row_end[pivot]) <=
+        nz_begin + (diag - pivot - 1)) {
+      lo = pivot + 1;
+    } else {
+      hi = pivot;
+    }
+  }
+  return Coord{static_cast<int>(lo), static_cast<int>(diag - lo)};
+}
+
+__global__ void __launch_bounds__(kSearchThreads)
+merge_search_kernel(const int* __restrict__ row_offsets, int num_rows,
+                    int nnz, int num_tiles, Coord* __restrict__ coords) {
+  const int t = blockIdx.x * kSearchThreads + threadIdx.x;
+  if (t > num_tiles) return;
+  const long long total = static_cast<long long>(num_rows) + nnz;
+  const long long tile_start = static_cast<long long>(t) * kTileItems;
+  const long long diag = tile_start < total ? tile_start : total;
+  coords[t] = merge_path_search(diag, row_offsets + 1, num_rows, 0, nnz);
+}
+
+__global__ void __launch_bounds__(kBlock)
+merge_consume_kernel(const int* __restrict__ row_offsets,
+                     const int* __restrict__ col_indices,
+                     const float* __restrict__ values,
+                     const float* __restrict__ x, float* __restrict__ y,
+                     const Coord* __restrict__ coords, int num_rows,
+                     int* __restrict__ carry_rows,
+                     float* __restrict__ carry_vals) {
+  __shared__ int s_row_end[kTileItems + 1];
+  __shared__ float s_prod[kTileItems];
+  __shared__ int s_flag[2][kBlock];
+  __shared__ float s_val[2][kBlock];
+
+  const Coord start = coords[blockIdx.x];
+  const Coord end = coords[blockIdx.x + 1];
+  const int tile_rows = end.row - start.row;
+  const int tile_nnz = end.nz - start.nz;
+  const int tile_items = tile_rows + tile_nnz;
+  const int t = threadIdx.x;
+
+  for (int j = t; j < tile_nnz; j += kBlock) {
+    const int g = start.nz + j;
+    s_prod[j] = __fmul_rn(values[g], __ldg(x + col_indices[g]));
+  }
+  // one entry past the tile's rows: the walk may test the row it ends
+  // in; past the last row of the matrix nothing is left to consume
+  for (int r = t; r <= tile_rows; r += kBlock) {
+    const int g = start.row + r;
+    s_row_end[r] = g < num_rows ? row_offsets[g + 1] : INT_MAX;
+  }
+  __syncthreads();
+
+  const int d0 = t * kItems < tile_items ? t * kItems : tile_items;
+  const int d1 = d0 + kItems < tile_items ? d0 + kItems : tile_items;
+  const Coord c = merge_path_search(d0, s_row_end, tile_rows, start.nz,
+                                    tile_nnz);
+  int row = c.row;  // local to the tile
+  int nz = c.nz;
+  float running = 0.0f;
+  int has_first = 0;
+  int first_row = 0;
+  float first_val = 0.0f;
+  for (int item = d0; item < d1; ++item) {
+    if (start.nz + nz < s_row_end[row]) {
+      running = __fadd_rn(running, s_prod[nz]);
+      ++nz;
+    } else {
+      if (has_first) {
+        y[start.row + row] = running;
+      } else {
+        has_first = 1;
+        first_row = row;
+        first_val = running;
+      }
+      running = 0.0f;
+      ++row;
+    }
+  }
+
+  // Inclusive scan of (flag, value) over the CTA's threads with
+  // (a, b) -> (a.flag | b.flag, b.flag ? b.value : a.value + b.value):
+  // the value of thread t is the partial of the row thread t ends in,
+  // over every item of the CTA up to t's end.
+  int f = has_first;
+  float v = running;
+  int buf = 0;
+  s_flag[buf][t] = f;
+  s_val[buf][t] = v;
+  for (int off = 1; off < kBlock; off <<= 1) {
+    __syncthreads();
+    if (t >= off) {
+      if (!f) v = __fadd_rn(s_val[buf][t - off], v);
+      f |= s_flag[buf][t - off];
+    }
+    buf ^= 1;
+    s_flag[buf][t] = f;
+    s_val[buf][t] = v;
+  }
+  __syncthreads();
+  if (has_first) {
+    const float head = t > 0 ? s_val[buf][t - 1] : 0.0f;
+    y[start.row + first_row] = __fadd_rn(head, first_val);
+  }
+  if (t == kBlock - 1) {
+    carry_rows[blockIdx.x] = end.row;
+    carry_vals[blockIdx.x] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kSearchThreads)
+merge_fixup_kernel(const int* __restrict__ carry_rows,
+                   const float* __restrict__ carry_vals, int num_tiles,
+                   int num_rows, float* __restrict__ y) {
+  const int c = blockIdx.x * kSearchThreads + threadIdx.x;
+  if (c >= num_tiles) return;
+  const int r = carry_rows[c];
+  if (r >= num_rows || (c > 0 && carry_rows[c - 1] == r)) return;
+  float s = carry_vals[c];
+  for (int k = c + 1; k < num_tiles && carry_rows[k] == r; ++k) {
+    s = __fadd_rn(s, carry_vals[k]);
+  }
+  y[r] = __fadd_rn(y[r], s);
+}
+
+}  // namespace
+
+extern "C" int tps_merge_tile_items(void) { return kTileItems; }
+
+// y (num_rows,) = A @ x for CSR (row_offsets, col_indices, values).
+// Scratch: tile_coords (num_tiles + 1 int pairs), carry_rows and
+// carry_vals (num_tiles each), with num_tiles =
+// ceil((num_rows + nnz) / tps_merge_tile_items()). Returns the
+// cudaGetLastError() code after the three launches.
+extern "C" int tps_merge_spmv(const void* row_offsets, const void* col_indices,
+                              const void* values, const void* x, void* y,
+                              void* tile_coords, void* carry_rows,
+                              void* carry_vals, int num_rows, int nnz,
+                              int num_tiles, void* stream) {
+  const long long total = static_cast<long long>(num_rows) + nnz;
+  if (num_rows < 0 || nnz < 0 ||
+      num_tiles != static_cast<int>((total + kTileItems - 1) / kTileItems)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_tiles == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ro = static_cast<const int*>(row_offsets);
+  Coord* coords = static_cast<Coord*>(tile_coords);
+  int* crow = static_cast<int*>(carry_rows);
+  float* cval = static_cast<float*>(carry_vals);
+  float* yf = static_cast<float*>(y);
+
+  const int search_blocks = (num_tiles + 1 + kSearchThreads - 1) /
+                            kSearchThreads;
+  merge_search_kernel<<<search_blocks, kSearchThreads, 0, s>>>(
+      ro, num_rows, nnz, num_tiles, coords);
+  merge_consume_kernel<<<num_tiles, kBlock, 0, s>>>(
+      ro, static_cast<const int*>(col_indices),
+      static_cast<const float*>(values), static_cast<const float*>(x), yf,
+      coords, num_rows, crow, cval);
+  const int fixup_blocks = (num_tiles + kSearchThreads - 1) / kSearchThreads;
+  merge_fixup_kernel<<<fixup_blocks, kSearchThreads, 0, s>>>(
+      crow, cval, num_tiles, num_rows, yf);
+  return static_cast<int>(cudaGetLastError());
+}

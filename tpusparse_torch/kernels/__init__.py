@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels (sources in ``tpusparse_torch/csrc``).
+
+Each kernel module holds the kernel's wrapper, its plain PyTorch
+version and a launch counter (``LAUNCHES``). The wrapper runs the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises.
+
+  dia_stream   K1, masked constant-coefficient DIA (replaces
+               tpusparse/kernels/dia_stream.py::_spmm_dia_stream_edge_mask)
+  merge_spmv   K2, merge-path CSR SpMV (replaces
+               tpusparse/kernels/merge_spmv.py::_spmv_tiles)
+"""

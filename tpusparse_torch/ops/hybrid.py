@@ -1,0 +1,34 @@
+"""Hybrid DIA + remainder plan (port of ``tpusparse/ops/hybrid.py``).
+
+``A = A_dia + A_rest`` elementwise, so ``y = A_dia x + A_rest x``: the
+dense diagonals run on the masked DIA kernel (K1), the scattered
+remainder on the merge plan (K2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from tpusparse_torch.kernels.dia_stream import DiaStreamDevice, spmv_dia_stream
+
+
+@dataclasses.dataclass
+class HybridPlan:
+    """DIA part + a plan for the remainder (None when the diagonals
+    cover the whole matrix — then this is pure DIA)."""
+
+    dia: DiaStreamDevice
+    rest: Any            # MergeDevice or None
+    nnz: int             # real nonzeros (for flop accounting)
+
+
+def spmv_hybrid(H: HybridPlan, x, alpha=1.0, beta=0.0, y=None):
+    from tpusparse_torch.ops.spmv import spmv
+
+    y_new = spmv_dia_stream(H.dia, x)
+    if H.rest is not None:
+        y_new = spmv(H.rest, x, beta=1.0, y=y_new)
+    if beta == 0.0 or y is None:
+        return alpha * y_new if alpha != 1.0 else y_new
+    return alpha * y_new + beta * y

@@ -1,0 +1,177 @@
+"""Public SpMV with strategy planning (port of ``tpusparse/ops/spmv.py``).
+
+``plan_matrix`` builds a device operand for a host CsrMatrix;
+``spmv`` dispatches on the operand type. The strategies the port runs:
+
+  AUTO       — a square constant-coefficient diagonal operator whose
+               dense diagonals carry at least ``DIA_MIN_COVERAGE`` of
+               the nonzeros goes to the masked DIA kernel (K1), any
+               scattered remainder to the merge-path kernel (K2);
+               everything else goes to K2, non-constant bands included.
+  DIA        — the same peel without the coverage gate.
+  MERGE      — K2 on the whole matrix.
+  REFERENCE  — the plain-torch golden product on ``csr.to(device)``.
+
+The plan may differ from the JAX package's plan; the numbers may not.
+The other strategies, float64, reordering and L > 1 raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+import torch
+
+from tpusparse_torch.formats.csr import CsrMatrix
+from tpusparse_torch.formats.dia import (
+    diagonal_profile,
+    partition_dia,
+    select_diagonals,
+)
+from tpusparse_torch.kernels.dia_stream import (
+    DiaStreamDevice,
+    _maskable,
+    spmv_dia_stream,
+    to_device_dia_stream,
+)
+from tpusparse_torch.kernels.merge_spmv import (
+    MergeDevice,
+    spmv_merge,
+    to_device_merge,
+)
+from tpusparse_torch.ops.hybrid import HybridPlan, spmv_hybrid
+from tpusparse_torch.ops.reference import spmv_reference
+
+
+class SpmvStrategy(enum.Enum):
+    REFERENCE = "reference"
+    MERGE = "merge"
+    NONZERO_SPLIT = "nonzero_split"
+    ROW_SPLIT = "row_split"
+    BSR = "bsr"
+    BCOO = "bcoo"
+    DIA = "dia"
+    NMAJOR = "nmajor"
+    AUTO = "auto"
+
+    @classmethod
+    def parse(cls, s) -> "SpmvStrategy":
+        if isinstance(s, cls):
+            return s
+        aliases = {"simple": "row_split", "ell": "row_split",
+                   "hybrid": "dia", "mkl": "bcoo"}
+        s = str(s).lower()
+        return cls(aliases.get(s, s))
+
+
+# Where each strategy the port does not run yet is planned (ROADMAP.md).
+_NOT_PORTED = {
+    SpmvStrategy.ROW_SPLIT: "row-split ELL SpMM, kernel B5 (ROADMAP A8)",
+    SpmvStrategy.NONZERO_SPLIT: "the nonzero_split strategy row (ROADMAP A14)",
+    SpmvStrategy.BSR: "BCSR panel SpMM, kernel B6 (ROADMAP A8b)",
+    SpmvStrategy.BCOO: "the vendor-baseline row (ROADMAP A6)",
+    SpmvStrategy.NMAJOR: "n-major masked multi-RHS DIA, kernel B12 "
+                         "(ROADMAP A15)",
+}
+
+# AUTO peels diagonals only when the selected ones carry at least this
+# fraction of the nonzeros (the JAX package's gate).
+DIA_MIN_COVERAGE = 0.3
+
+
+def _check_float32(dtype) -> None:
+    if isinstance(dtype, torch.dtype):
+        ok = dtype == torch.float32
+    else:
+        ok = np.dtype(dtype) == np.float32
+    if not ok:
+        raise NotImplementedError(
+            f"dtype {dtype}: the port plans float32 only; float64 plans "
+            "(kernels B7-B11) are ROADMAP A9")
+
+
+def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
+                L: int = 1, device="cuda", reorder=None):
+    """Build the device operand of a host CsrMatrix on ``device``."""
+    if reorder:
+        raise NotImplementedError(
+            "reorder: reordered plans (kernel B13) are ROADMAP A10")
+    strategy = SpmvStrategy.parse(strategy)
+    _check_float32(dtype)
+    if L != 1:
+        raise NotImplementedError(
+            f"L={L}: multi-RHS plans (spmm, kernels B4/B5, K1 at L>1 in "
+            "CG) are ROADMAP A8")
+    if strategy in _NOT_PORTED:
+        raise NotImplementedError(
+            f"strategy '{strategy.value}': {_NOT_PORTED[strategy]}")
+    if strategy == SpmvStrategy.REFERENCE:
+        return csr.to(device)
+    if strategy in (SpmvStrategy.AUTO, SpmvStrategy.DIA):
+        plan = _try_plan_dia(csr, strategy, device)
+        if plan is not None:
+            return plan
+    return to_device_merge(csr, device)
+
+
+def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device):
+    """Masked DIA / hybrid plan, or None when the matrix has no
+    diagonal structure worth peeling (explicit 'dia' skips the coverage
+    gate). A diagonal operator that is not square and
+    constant-coefficient needs the value-plane kernel B2: AUTO sends it
+    to K2 whole, explicit 'dia' raises."""
+    if csr.nnz == 0:
+        return None
+    offsets = select_diagonals(csr)
+    if offsets.size == 0:
+        return None
+    all_off, counts, _ = diagonal_profile(csr)
+    covered = int(counts[np.isin(all_off, offsets)].sum())
+    if (strategy != SpmvStrategy.DIA
+            and covered < DIA_MIN_COVERAGE * csr.nnz):
+        return None
+    dia_host, rest = partition_dia(csr, offsets)
+    if csr.num_rows != csr.num_cols or not _maskable(dia_host)[1]:
+        if strategy == SpmvStrategy.DIA:
+            raise NotImplementedError(
+                "strategy 'dia' on a non-square or non-constant band: the "
+                "value-plane DIA kernel B2 and ops/dia.py are ROADMAP A3b")
+        return None
+    dev = to_device_dia_stream(dia_host, device)
+    rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
+    return HybridPlan(dev, rest_plan, csr.nnz)
+
+
+def plan_kind(A) -> str:
+    """Short name of a plan's kernel family (the JAX package's labels)."""
+    if isinstance(A, HybridPlan):
+        return "dia" if A.rest is None else "hybrid_dia"
+    if isinstance(A, DiaStreamDevice):
+        return "dia"
+    if isinstance(A, MergeDevice):
+        return "merge"
+    if isinstance(A, CsrMatrix):
+        return "reference"
+    raise TypeError(f"not a plan: {type(A).__name__}")
+
+
+def plan_semantics(A) -> str:
+    """Numeric semantics a plan's kernels deliver: every port plan is
+    ``'f32'`` until float64 (ROADMAP A9)."""
+    plan_kind(A)
+    return "f32"
+
+
+def spmv(A, x, alpha=1.0, beta=0.0, y=None):
+    """y = alpha * A @ x + beta * y for any plan of ``plan_matrix``."""
+    if isinstance(A, HybridPlan):
+        return spmv_hybrid(A, x, alpha=alpha, beta=beta, y=y)
+    if isinstance(A, DiaStreamDevice):
+        return spmv_dia_stream(A, x, alpha=alpha, beta=beta, y=y)
+    if isinstance(A, MergeDevice):
+        return spmv_merge(A, x, alpha=alpha, beta=beta, y=y)
+    if isinstance(A, CsrMatrix):
+        return spmv_reference(A, x, alpha=alpha, beta=beta, y=y)
+    raise TypeError(f"not a plan: {type(A).__name__}")
