@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tpusparse_torch``) on one GPU.
 
-Drives the port's main path — host ingest -> ``plan_matrix(csr,
-"auto")`` -> ``spmv`` / ``cg_solve`` — through its hand-written CUDA
-kernels, and exits non-zero on any failure. Run from the repository
-root on a machine with one NVIDIA H100:
+Drives the port's two main paths through its hand-written CUDA kernels
+and exits non-zero on any failure:
+
+  * one right-hand side: host ingest -> ``plan_matrix(csr, "auto")`` ->
+    ``spmv`` / ``cg_solve`` (K1 masked DIA, K2 merge-path SpMV);
+  * L right-hand sides: ``plan_matrix(csr, strategy, L=16)`` -> ``spmm``
+    / ``cg_solve_multi`` (K1 at L > 1, K3 merge-path SpMM, K4 row-split
+    SpMM).
+
+Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
@@ -12,18 +18,34 @@ Phases, each printed on its own lines:
 
   [1] the card (``nvidia-smi`` name and power limit) and the kernels'
       build from ``tpusparse_torch/csrc``;
-  [2] K1 (masked DIA) and K2 (merge-path SpMV) against their plain
-      PyTorch versions on the card, under the stated error bounds
-      (u = 2^-24); two K2 runs must be bitwise equal;
-  [3] the slice at the bench fixture lap3d-48: AUTO must give a masked
-      DIA plan; SpMV times (CUDA events per call as made, and device
-      time from CUDA-graph replay) beside the plain versions';
-  [4] the slice at lap3d-160 (4.1M rows, beyond L2): the same SpMV
-      times, then CG on AUTO (must converge, float64 true residual
-      < 1e-4) and CG through K2 on rmat_spd(17, 4) and gr_30_30, each
-      solved twice and timed on the second solve;
-  [5] launch counts of phases 3-4 (counters reset before phase 3):
-      both kernels must have run on the main path.
+  [2] every kernel against its plain PyTorch version on the card, under
+      the stated error bounds (u = 2^-24): K1 at L = 1, 4 and 16; K2,
+      and K3 and K4 at L = 1, 3, 16 and 32, on lap3d-48, rmat-18-ef16,
+      wheel-100000, ``data/real/*.mtx``, an empty-rows and an nnz = 0
+      CSR; two runs of K2, K3 and K4 must be bitwise equal;
+  [3] the single-RHS slice at the bench fixture lap3d-48: AUTO must give
+      a masked DIA plan; SpMV times (CUDA events per call as made, and
+      device time from CUDA-graph replay) beside the plain versions', the
+      ``torch.sparse`` CSR product's (the library call, never on the
+      path) and the bound (bytes or operations over the H100's peaks,
+      ``bench/models.bound_ms``);
+  [4] the same at lap3d-160 (4.1M rows, beyond L2), then CG on AUTO
+      (must converge, float64 true residual < 1e-4) and CG through K2
+      on rmat_spd(17, 4) and gr_30_30, each solved twice and timed on
+      the second solve;
+  [6] the multi-RHS slice at L = 16: ``spmm`` at lap3d-160 on AUTO (must
+      be a pure masked DIA plan: K1), ``'merge'`` (K3) and
+      ``'row_split'`` (K4), and at rmat-18-ef16 on AUTO (must plan
+      merge: K3) and ``'row_split'`` (K4); each result checked against a
+      float64 product and timed beside its plain version, the library
+      call and the bound;
+  [7] ``cg_solve_multi`` at L = 16, tol 1e-5: lap3d-160 on AUTO (K1,
+      (L, n) state) with B = A X_true, rmat_spd(17, 4) on AUTO (K3) and
+      gr_30_30 on ``'row_split'`` (K4); every lane must converge with a
+      float64 true residual < 1e-4; solved twice, the second timed;
+  [5] launch counts of each main path, counted from 0 just before it
+      ([3]-[4] and [6]-[7]) and read just after: K1 and K2 must have run
+      on the first, K1, K3 and K4 on the second.
 
 The last two lines are a JSON object of the kernels and the result
 line ``{"ok": true, "device": {...}}``. The port imports no JAX.
@@ -43,6 +65,8 @@ ROOT = Path(__file__).resolve().parent
 U = 2.0 ** -24           # float32 unit roundoff
 CG_TOL = 1e-5
 TRUE_RESIDUAL_MAX = 1e-4
+L_MULTI = 16             # right-hand sides of the multi-RHS phases
+SPMM_LS = (1, 3, 16, 32)
 
 
 def check(ok, what: str) -> None:
@@ -102,6 +126,68 @@ def k2_vs_plain(name, csr, seed):
     return err
 
 
+def spmm_kernels():
+    """name -> (plan constructor, kernel wrapper, plain version) of K3, K4."""
+    from tpusparse_torch.kernels import ell_spmm, merge_spmv, spmm_merge
+
+    return {
+        "K3": (merge_spmv.to_device_merge, spmm_merge.merge_matmat,
+               spmm_merge.spmm_merge_plain),
+        "K4": (ell_spmm.to_device_row_split, ell_spmm.row_split_matmat,
+               ell_spmm.spmm_row_split_plain),
+    }
+
+
+def row_bound(A, X):
+    """(float64 A X, (nnz_i + 2) u |A||X|) for a CSR operand on the card."""
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    args = (A.num_rows, A.row_offsets, A.col_indices)
+    Y64 = csr_matmat(*args, A.values.double(), X.double())
+    AX = csr_matmat(*args, A.values.abs().double(), X.abs().double())
+    nnz_i = (A.row_offsets[1:] - A.row_offsets[:-1]).double()[:, None]
+    return Y64, (nnz_i + 2) * U * AX, AX
+
+
+def spmm_vs_plain(kernel, name, csr, seed):
+    """K3 or K4 against its plain version (ULP compare, normwise 1e-5)
+    and a float64 product (|d|_il <= (nnz_i + 2) u (|A||X|)_il) at each
+    L of SPMM_LS; two runs bitwise equal. Returns max |kernel - plain|."""
+    from tpusparse_torch.utils.compare import compare_results
+
+    plan, matmat, plain = spmm_kernels()[kernel]
+    A = plan(csr, "cuda")
+    worst = 0.0
+    for L in SPMM_LS:
+        X = rand(seed + L, (A.num_cols, L))
+        Y1 = matmat(A, X)
+        Y2 = matmat(A, X)
+        Yp = plain(A, X)
+        Y64, bound, AX = row_bound(A, X)
+        err = float((Y1 - Yp).abs().max()) if Y1.numel() else 0.0
+        amax = float(AX.max()) if AX.numel() else 0.0
+        what = f"{kernel} {name} L={L}"
+        check(Y1.shape == (A.num_rows, L), f"{what}: shape")
+        check(torch.equal(Y1, Y2), f"{what}: two runs bitwise equal")
+        check(compare_results(Y1, Yp)[0], f"{what}: ULP compare vs plain")
+        check(err <= 1e-5 * amax, f"{what}: normwise bound vs plain")
+        check(((Y1.double() - Y64).abs() <= bound).all(),
+              f"{what}: row bound vs float64")
+        worst = max(worst, err)
+    print(f"[2] {kernel} {name} {A.num_rows}x{A.num_cols} nnz {A.nnz} "
+          f"L={list(SPMM_LS)}: max|{kernel}-plain| {worst:.3e}, ULP and "
+          f"normwise vs plain PASS, row bound vs float64 PASS, bitwise "
+          f"repeat PASS")
+    return worst
+
+
+def library_csr(A):
+    """The CSR arrays of a plan as a ``torch.sparse`` CSR tensor, for
+    the library call timed beside the kernels (cuSPARSE)."""
+    return torch.sparse_csr_tensor(A.row_offsets, A.col_indices, A.values,
+                                   size=(A.num_rows, A.num_cols))
+
+
 def time_pair(kernel_fn, plain_fn):
     """(kernel, plain) ms: events per call as made, and graph-replayed
     device time; measured plain, kernel, kernel, plain."""
@@ -116,11 +202,31 @@ def time_pair(kernel_fn, plain_fn):
             for k, v in out.items()}
 
 
+def report(phase, what, t, flops, nbytes):
+    """Print one timing line: kernel and plain (per call, device), the
+    library call per call, and the bound; returns the bound."""
+    from tpusparse_torch.bench.models import bound_ms, gflops
+
+    (kev, kdev), (pev, pdev) = t["kernel"], t["plain"]
+    bms, by = bound_ms(flops, nbytes)
+    print(f"[{phase}] {what}: kernel {kev:.4f} ms/call, device {kdev:.4f}"
+          f" ms ({gflops(flops, kdev * 1e-3):.1f} GFLOP/s, "
+          f"{nbytes / kdev * 1e-6:.1f} GB/s of {nbytes / 1e6:.1f} MB); "
+          f"plain {pev:.4f} ms/call, device {pdev:.4f} ms; torch.sparse "
+          f"{t['library']:.4f} ms/call; bound {bms:.4f} ms ({by})")
+    return bms, by
+
+
 def slice_spmv(phase, tag, csr, seed):
     """AUTO (must be masked DIA) and merge SpMV through ``spmv``: check
-    against float64, time beside the plain versions."""
+    against float64, time beside the plain versions and the library."""
     from tpusparse_torch import plan_kind, plan_matrix, spmv
-    from tpusparse_torch.bench.models import gflops, spmv_flops
+    from tpusparse_torch.bench.models import (
+        dia_masked_bytes,
+        spmm_bytes,
+        spmv_flops,
+    )
+    from tpusparse_torch.bench.timing import cuda_time_ms
     from tpusparse_torch.kernels import dia_stream, merge_spmv
     from tpusparse_torch.ops.reference import csr_matvec
 
@@ -140,6 +246,8 @@ def slice_spmv(phase, tag, csr, seed):
         check(((y.double() - y64).abs() <= 16 * U * ax).all(),
               f"{tag} {label}: y within 16u|A||x| of float64")
     XT = x.reshape(1, -1)
+    lib = library_csr(M)
+    lib_ms = cuda_time_ms(lambda: lib @ x)
     times = {
         "K1": time_pair(lambda: spmv(A, x),
                         lambda: dia_stream.spmm_dia_masked_plain(A.dia, XT)),
@@ -147,13 +255,66 @@ def slice_spmv(phase, tag, csr, seed):
                         lambda: merge_spmv.spmv_merge_plain(M, x)),
     }
     fl = spmv_flops(csr.nnz)
-    for k, label in (("K1", "auto (masked DIA)"), ("K2", "merge")):
-        (kev, kdev), (pev, pdev) = times[k]["kernel"], times[k]["plain"]
-        print(f"[{phase}] {tag} spmv {label}: kernel {kev:.4f} ms/call "
-              f"({gflops(fl, kev * 1e-3):.1f} GFLOP/s), device "
-              f"{kdev:.4f} ms ({gflops(fl, kdev * 1e-3):.1f} GFLOP/s); "
-              f"plain {pev:.4f} ms/call, device {pdev:.4f} ms")
+    n = csr.num_rows
+    for k, label, nbytes in (
+            ("K1", "auto (masked DIA)", dia_masked_bytes(n)),
+            ("K2", "merge", spmm_bytes(csr.nnz, n, csr.num_cols))):
+        times[k]["library"] = lib_ms
+        times[k]["bound"] = report(phase, f"{tag} spmv {label}", times[k],
+                                   fl, nbytes)
     return A, M, times
+
+
+def slice_spmm(tag, C, plans, seed):
+    """``spmm`` at L_MULTI through each (label, plan, kernel, expected
+    family) of ``plans`` of one matrix, whose CSR operand on the card is
+    ``C``: check against float64, time the call beside the plain
+    version, the library call and the bound."""
+    from tpusparse_torch import plan_kind, spmm
+    from tpusparse_torch.bench.models import (
+        dia_masked_bytes,
+        spmm_bytes,
+        spmv_flops,
+    )
+    from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
+    from tpusparse_torch.kernels import dia_stream
+
+    X = rand(seed, (C.num_cols, L_MULTI))
+    Y64, bound, _ = row_bound(C, X)
+    lib = library_csr(C)
+    lib_ms = cuda_time_ms(lambda: lib @ X)
+    fl = spmv_flops(C.nnz, L_MULTI)
+    out = {}
+    for label, P, kernel, kind in plans:
+        check(plan_kind(P) == kind,
+              f"{tag} {label}: plan {kind} (got {plan_kind(P)})")
+        Y = spmm(P, X)
+        check(Y.shape == (C.num_rows, L_MULTI) and torch.isfinite(Y).all(),
+              f"{tag} {label}: finite Y of shape ({C.num_rows}, {L_MULTI})")
+        check(((Y.double() - Y64).abs() <= bound).all(),
+              f"{tag} {label}: Y within (nnz_i+2)u|A||X| of float64")
+        if kernel == "K1":
+            # the kernel alone on K1's (L, n) layout, and through spmm,
+            # which transposes X in and Y out
+            XT = X.T.contiguous()
+            t = time_pair(lambda: dia_stream.spmm_dia_stream_t(P.dia, XT),
+                          lambda: dia_stream.spmm_dia_masked_plain(P.dia,
+                                                                   XT))
+            nbytes = dia_masked_bytes(C.num_rows, L_MULTI)
+            call = (cuda_time_ms(lambda: spmm(P, X)),
+                    graph_time_ms(lambda: spmm(P, X)))
+            print(f"[6] {tag} spmm {label} through spmm (with the "
+                  f"transposes): {call[0]:.4f} ms/call, device "
+                  f"{call[1]:.4f} ms")
+        else:
+            _, _, plain = spmm_kernels()[kernel]
+            t = time_pair(lambda: spmm(P, X), lambda: plain(P, X))
+            nbytes = spmm_bytes(C.nnz, C.num_rows, C.num_cols, L_MULTI)
+        t["library"] = lib_ms
+        t["bound"] = report(6, f"{tag} spmm {label} ({kernel}) L={L_MULTI}",
+                            t, fl, nbytes)
+        out[kernel] = t
+    return out
 
 
 def run_cg(tag, A, csr, b):
@@ -185,15 +346,58 @@ def run_cg(tag, A, csr, b):
     return res.iterations, per, true_res
 
 
+def run_cg_multi(tag, A, C, B):
+    """``cg_solve_multi`` at tol 1e-5, twice (the second timed), on the
+    plan ``A`` of the CSR operand ``C`` (on the card); every lane must
+    converge with a float64 true residual < 1e-4. Returns (iterations,
+    ms/iteration, largest true residual)."""
+    from tpusparse_torch import cg_solve_multi
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg_solve_multi(A, B, max_iters=10000, tolerance=CG_TOL)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    first, ms = walls
+    X64, B64 = res.x.double(), B.double()
+    R64 = B64 - csr_matmat(C.num_rows, C.row_offsets, C.col_indices,
+                           C.values.double(), X64)
+    true_res = (torch.linalg.norm(R64, dim=0)
+                / torch.linalg.norm(B64, dim=0)).cpu().numpy()
+    check(res.x.shape == B.shape and torch.isfinite(res.x).all(),
+          f"{tag}: finite X of B's shape")
+    check(bool(res.converged.all()), f"{tag}: every lane converged")
+    check((true_res < TRUE_RESIDUAL_MAX).all(),
+          f"{tag}: true residuals {true_res}")
+    per = ms / max(res.iterations, 1)
+    print(f"[7] cg_multi {tag} L={B.shape[1]}: {res.iterations} iterations, "
+          f"all {B.shape[1]} lanes converged, residual max "
+          f"{float(res.residual.max()):.3e}, float64 true residual max "
+          f"{true_res.max():.3e}, {ms:.1f} ms ({per:.4f} ms/iteration; "
+          f"first solve {first:.1f} ms)")
+    return res.iterations, per, float(true_res.max())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
-    from tpusparse_torch import plan_matrix
+    from tpusparse_torch import CsrMatrix, plan_matrix
     from tpusparse_torch.io import generators as gen
     from tpusparse_torch.io.market import read_market
-    from tpusparse_torch.kernels import _build, dia_stream, merge_spmv
+    from tpusparse_torch.kernels import (
+        _build,
+        dia_stream,
+        ell_spmm,
+        merge_spmv,
+        spmm_merge,
+    )
+    from tpusparse_torch.ops.reference import csr_matmat
 
+    t_start = time.perf_counter()
     # [1] card and build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -212,52 +416,117 @@ def main() -> int:
     # [2] kernels against their plain versions
     lap48 = gen.make_laplacian_grid3d(48).to_csr()
     D48 = plan_matrix(lap48, "auto", device="cuda").dia
-    k1_err = max(k1_vs_plain("lap3d-48", D48, L, 10 + L) for L in (1, 4))
+    k1_err = max(k1_vs_plain("lap3d-48", D48, L, 10 + L) for L in (1, 4, 16))
     fixtures = [("lap3d-48", lap48),
                 ("rmat-18-ef16", gen.make_rmat(18, edge_factor=16).to_csr()),
                 ("wheel-100000", gen.make_wheel(100000).to_csr())]
     fixtures += [(p.stem, read_market(p).to_csr())
                  for p in sorted((ROOT / "data" / "real").glob("*.mtx"))]
+    fixtures += [
+        ("empty-rows", CsrMatrix(6, 5, np.array([0, 0, 2, 2, 2, 3, 3]),
+                                 np.array([1, 4, 0]),
+                                 np.array([1.0, 2.0, 3.0]))),
+        ("nnz-0", CsrMatrix(4, 4, np.zeros(5, np.int32),
+                            np.zeros(0, np.int32), np.zeros(0)))]
     k2_err = max(k2_vs_plain(name, csr, 20 + i)
                  for i, (name, csr) in enumerate(fixtures))
+    k3_err = max(spmm_vs_plain("K3", name, csr, 40 + i)
+                 for i, (name, csr) in enumerate(fixtures))
+    k4_err = max(spmm_vs_plain("K4", name, csr, 60 + i)
+                 for i, (name, csr) in enumerate(fixtures))
+    rmat18 = fixtures[1][1]
     torch.cuda.synchronize()
+    print(f"[2] done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # [3]-[4] the main path; count launches from here on
-    dia_stream.LAUNCHES = 0
-    merge_spmv.LAUNCHES = 0
+    # [3]-[4] the single-RHS path; count launches from here on
+    modules = {"K1": dia_stream, "K2": merge_spmv, "K3": spmm_merge,
+               "K4": ell_spmm}
+    for m in modules.values():
+        m.LAUNCHES = 0
     slice_spmv(3, "lap3d-48", lap48, 30)
     lap160 = gen.make_laplacian_grid3d(160).to_csr()
-    A160, _, t160 = slice_spmv(4, "lap3d-160", lap160, 31)
+    A160, M160, t160 = slice_spmv(4, "lap3d-160", lap160, 31)
     x_true = np.random.default_rng(32).standard_normal(lap160.num_cols)
     b = torch.from_numpy((lap160.to_scipy() @ x_true).astype(np.float32))
     run_cg("lap3d-160 auto (K1)", A160, lap160, b.cuda())
-    for tag, csr in (("rmat_spd-17-ef4 merge (K2)",
-                      gen.make_rmat_spd(17, edge_factor=4).to_csr()),
-                     ("gr_30_30 merge (K2)",
-                      read_market(ROOT / "data/real/gr_30_30.mtx").to_csr())):
+    rmat_spd17 = gen.make_rmat_spd(17, edge_factor=4).to_csr()
+    gr = read_market(ROOT / "data/real/gr_30_30.mtx").to_csr()
+    for tag, csr in (("rmat_spd-17-ef4 merge (K2)", rmat_spd17),
+                     ("gr_30_30 merge (K2)", gr)):
         b = rand(33, csr.num_rows)
         run_cg(tag, plan_matrix(csr, "merge", device="cuda"), csr, b)
     torch.cuda.synchronize()
+    path1 = {k: m.LAUNCHES for k, m in modules.items()}
+    print(f"[5] single-RHS path launches: {path1}", flush=True)
+    check(path1["K1"] > 0 and path1["K2"] > 0,
+          "K1 and K2 launched on the single-RHS path")
 
-    # [5] launch counts of the main path
-    n1, n2 = dia_stream.LAUNCHES, merge_spmv.LAUNCHES
-    print(f"[5] main-path launches: K1 {n1}, K2 {n2}")
-    check(n1 > 0 and n2 > 0, "both kernels launched on the main path")
+    # [6]-[7] the multi-RHS path, counted from 0 again
+    for m in modules.values():
+        m.LAUNCHES = 0
+    del A160, M160
+    A16 = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda")
+    M16 = plan_matrix(lap160, "merge", L=L_MULTI, device="cuda")
+    t6 = slice_spmm("lap3d-160", M16, (
+        ("auto", A16, "K1", "dia"), ("merge", M16, "K3", "merge"),
+        ("row_split", plan_matrix(lap160, "row_split", L=L_MULTI,
+                                  device="cuda"), "K4", "row_split")), 34)
+    Mr = plan_matrix(rmat18, "auto", L=L_MULTI, device="cuda")
+    slice_spmm("rmat-18-ef16", Mr, (
+        ("auto", Mr, "K3", "merge"),
+        ("row_split", plan_matrix(rmat18, "row_split", L=L_MULTI,
+                                  device="cuda"), "K4", "row_split")), 35)
+    del Mr
+    X_true = torch.from_numpy(np.random.default_rng(36).standard_normal(
+        (lap160.num_cols, L_MULTI))).cuda()
+    B160 = csr_matmat(M16.num_rows, M16.row_offsets, M16.col_indices,
+                      M16.values.double(), X_true).float()
+    run_cg_multi("lap3d-160 auto (K1, (L, n) state)", A16, M16, B160)
+    R17 = plan_matrix(rmat_spd17, "auto", L=L_MULTI, device="cuda")
+    check(isinstance(R17, merge_spmv.MergeDevice),
+          "rmat_spd-17-ef4 AUTO at L=16 plans merge")
+    run_cg_multi("rmat_spd-17-ef4 auto (K3)", R17, R17,
+                 rand(37, (rmat_spd17.num_rows, L_MULTI)))
+    G = plan_matrix(gr, "row_split", L=L_MULTI, device="cuda")
+    run_cg_multi("gr_30_30 row_split (K4)", G, G,
+                 rand(38, (gr.num_rows, L_MULTI)))
+    torch.cuda.synchronize()
+    path2 = {k: m.LAUNCHES for k, m in modules.items()}
+    print(f"[5] multi-RHS path launches: {path2}")
+    check(path2["K1"] > 0 and path2["K3"] > 0 and path2["K4"] > 0,
+          "K1, K3 and K4 launched on the multi-RHS path")
+    print(f"[5] main-path launches: K1 {path1['K1'] + path2['K1']}, K2 "
+          f"{path1['K2'] + path2['K2']}, K3 {path1['K3'] + path2['K3']}, "
+          f"K4 {path1['K4'] + path2['K4']}")
+
+    def entry(name, source, replaces, key, err, t, fixture):
+        return {"name": name, "route": "cuda",
+                "source": f"tpusparse_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": path1[key] + path2[key], "max_abs_err": err,
+                "ms": t["kernel"][1], "plain_ms": t["plain"][1],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library"], "fixture": fixture}
 
     kernels = [
-        {"name": "K1 masked DIA SpMV", "route": "cuda",
-         "source": "tpusparse_torch/csrc/dia_masked.cu",
-         "replaces": "tpusparse/kernels/dia_stream.py:809",
-         "launches": n1, "max_abs_err": k1_err,
-         "ms": t160["K1"]["kernel"][1], "plain_ms": t160["K1"]["plain"][1],
-         "fixture": "lap3d-160 spmv, device time"},
-        {"name": "K2 merge-path CSR SpMV", "route": "cuda",
-         "source": "tpusparse_torch/csrc/merge_spmv.cu",
-         "replaces": "tpusparse/kernels/merge_spmv.py:672",
-         "launches": n2, "max_abs_err": k2_err,
-         "ms": t160["K2"]["kernel"][1], "plain_ms": t160["K2"]["plain"][1],
-         "fixture": "lap3d-160 spmv, device time"},
+        entry("K1 masked DIA SpMV", "dia_masked.cu",
+              "tpusparse/kernels/dia_stream.py:809", "K1", k1_err,
+              t160["K1"], "lap3d-160 spmv L=1, device time"),
+        entry("K1 masked DIA SpMM", "dia_masked.cu",
+              "tpusparse/kernels/dia_stream.py:809", "K1", k1_err,
+              t6["K1"], f"lap3d-160 spmm L={L_MULTI} on (L, n), device "
+              "time"),
+        entry("K2 merge-path CSR SpMV", "merge_spmv.cu",
+              "tpusparse/kernels/merge_spmv.py:672", "K2", k2_err,
+              t160["K2"], "lap3d-160 spmv L=1, device time"),
+        entry("K3 merge-path CSR SpMM", "merge_spmm.cu",
+              "tpusparse/kernels/spmm_merge.py:161", "K3", k3_err,
+              t6["K3"], f"lap3d-160 spmm L={L_MULTI}, device time"),
+        entry("K4 row-split CSR SpMM", "rowsplit_spmm.cu",
+              "tpusparse/kernels/ell_spmm.py:132", "K4", k4_err,
+              t6["K4"], f"lap3d-160 spmm L={L_MULTI}, device time"),
     ]
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,11 +13,24 @@ import numpy as np
 import pytest
 import torch
 
-from tpusparse_torch import CsrMatrix, cg_solve, plan_matrix, spmv
+from tpusparse_torch import (
+    CsrMatrix,
+    cg_solve,
+    cg_solve_multi,
+    plan_kind,
+    plan_matrix,
+    spmm,
+    spmv,
+)
 from tpusparse_torch.io import generators as gen
 from tpusparse_torch.io.market import read_market
-from tpusparse_torch.kernels import dia_stream, merge_spmv
-from tpusparse_torch.ops.reference import csr_matvec
+from tpusparse_torch.kernels import (
+    dia_stream,
+    ell_spmm,
+    merge_spmv,
+    spmm_merge,
+)
+from tpusparse_torch.ops.reference import csr_matmat, csr_matvec
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +117,83 @@ def test_no_fallback_on_cuda_tensors(cuda):
         merge_spmv.merge_matvec(M, torch.zeros(16))
     y = spmv(M, torch.ones(16, device=cuda))
     assert y.is_cuda
+
+
+# (plan, kernel wrapper, plain version, kernel module) of K3 and K4
+SPMM_KERNELS = {
+    "K3": (merge_spmv.to_device_merge, spmm_merge.merge_matmat,
+           spmm_merge.spmm_merge_plain, spmm_merge),
+    "K4": (ell_spmm.to_device_row_split, ell_spmm.row_split_matmat,
+           ell_spmm.spmm_row_split_plain, ell_spmm),
+}
+
+
+@pytest.mark.parametrize("L", [1, 3, 16, 40])
+@pytest.mark.parametrize("kernel", list(SPMM_KERNELS))
+@pytest.mark.parametrize("name", list(CASES))
+def test_spmm_kernels_match_plain_and_float64(cuda, name, kernel, L):
+    plan, matmat, plain, module = SPMM_KERNELS[kernel]
+    A = plan(CASES[name](), cuda)
+    X = _x(None, 7, cuda, (A.num_cols, L))
+    before = module.LAUNCHES
+    Y1 = matmat(A, X)
+    Y2 = matmat(A, X)
+    assert module.LAUNCHES == before + (2 if A.num_rows else 0)
+    assert Y1.shape == (A.num_rows, L) and torch.equal(Y1, Y2)
+    args = (A.num_rows, A.row_offsets, A.col_indices)
+    Y64 = csr_matmat(*args, A.values.double(), X.double())
+    AX = csr_matmat(*args, A.values.abs().double(), X.abs().double())
+    nnz_i = (A.row_offsets[1:] - A.row_offsets[:-1]).double()[:, None]
+    assert torch.all((Y1.double() - Y64).abs() <= (nnz_i + 2) * U * AX)
+    Yp = plain(A, X)
+    if Y1.numel():
+        assert float((Y1 - Yp).abs().max()) <= 1e-5 * float(AX.max())
+
+
+@pytest.mark.parametrize("name,make,kind", [
+    ("lap3d-16", lambda: gen.make_laplacian_grid3d(16).to_csr(), "dia"),
+    ("wheel-5000", CASES["wheel-5000"], "hybrid_dia"),
+    ("rmat-12", CASES["rmat-12"], "merge")])
+def test_auto_spmm_on_card_matches_float64(cuda, name, make, kind):
+    csr = make()
+    P = plan_matrix(csr, "auto", L=8, device=cuda)
+    assert plan_kind(P) == kind
+    X = _x(None, 3, cuda, (csr.num_cols, 8))
+    Y = spmm(P, X)
+    C = csr.to(cuda)
+    args = (C.num_rows, C.row_offsets, C.col_indices)
+    Y64 = csr_matmat(*args, C.values.double(), X.double())
+    AX = csr_matmat(*args, C.values.abs().double(), X.abs().double())
+    nnz_i = (C.row_offsets[1:] - C.row_offsets[:-1]).double()[:, None]
+    # a hybrid row sums its DIA part and its remainder separately: one
+    # more rounding than a single pass over the row
+    assert torch.all((Y.double() - Y64).abs() <= (nnz_i + 3) * U * AX)
+
+
+def test_cg_multi_on_card_matches_cpu(cuda):
+    csr = gen.make_laplacian_grid3d(12).to_csr()
+    B = _x(None, 2, "cpu", (csr.num_rows, 4))
+    for strategy, module in (("auto", dia_stream), ("merge", spmm_merge),
+                             ("row_split", ell_spmm)):
+        r_cpu = cg_solve_multi(plan_matrix(csr, strategy, L=4, device="cpu"),
+                               B)
+        before = module.LAUNCHES
+        r = cg_solve_multi(plan_matrix(csr, strategy, L=4, device=cuda),
+                           B.to(cuda))
+        assert module.LAUNCHES > before
+        assert bool(r.converged.all()) and bool(r_cpu.converged.all())
+        assert abs(r.iterations - r_cpu.iterations) <= 1
+        assert torch.all(torch.linalg.norm(r.x.cpu() - r_cpu.x, dim=0)
+                         <= 1e-4 * torch.linalg.norm(r_cpu.x, dim=0))
+
+
+@pytest.mark.parametrize("kernel", list(SPMM_KERNELS))
+def test_spmm_kernels_refuse_wrong_operands(cuda, kernel):
+    plan, matmat, _, _ = SPMM_KERNELS[kernel]
+    A = plan(gen.make_laplacian_grid2d(4).to_csr(), cuda)
+    with pytest.raises(TypeError):
+        matmat(A, torch.zeros(16, 3, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="same device"):
+        matmat(A, torch.zeros(16, 3))
+    Y = spmm(A, torch.ones(16, 3, device=cuda))
+    assert Y.is_cuda and Y.shape == (16, 3)

@@ -123,6 +123,19 @@ def test_models_match_jax():
         == jmodels.dia_masked_bytes(110592, L=4)
     assert models.gflops(2e9, 1.0) == jmodels.gflops(2e9, 1.0) == 2.0
     assert models.gflops(1.0, 0.0) == 0.0
+    assert models.cg_flops(28518400, 4096000, 16, 70) \
+        == jmodels.cg_flops(28518400, 4096000, 16, 70)
+
+
+def test_spmm_bytes_and_bound():
+    # lap3d-160 at L = 16: payload 8 B per nonzero, offsets, X and Y
+    nnz, n, L = 28518400, 4096000, 16
+    b = models.spmm_bytes(nnz, n, n, L)
+    assert b == 8 * nnz + 4 * (n + 1) + 2 * 4 * n * L
+    ms, by = models.bound_ms(models.spmv_flops(nnz, L), b)
+    assert by == "bytes" and ms == pytest.approx(b / 3.35e12 * 1e3)
+    ms, by = models.bound_ms(67e9, 1.0)
+    assert by == "operations" and ms == pytest.approx(1.0)
 
 
 def test_csr_to_device_dtypes():
@@ -187,25 +200,34 @@ def test_auto_plan_kind(name, make, kind):
         == "reference"
 
 
+# (case, plan_matrix arguments, plan family once its ROADMAP item is
+# done; None while it still raises)
 NOT_PORTED = [
-    ("fp64", {"dtype": np.float64}),
-    ("torch-fp64", {"dtype": torch.float64}),
-    ("multi-rhs", {"L": 4}),
-    ("reorder", {"reorder": "rcm"}),
-    ("row_split", {"strategy": "row_split"}),
-    ("ell-alias", {"strategy": "ell"}),
-    ("bsr", {"strategy": "bsr"}),
-    ("bcoo", {"strategy": "bcoo"}),
-    ("nmajor", {"strategy": "nmajor"}),
-    ("nonzero_split", {"strategy": "nonzero_split"}),
+    ("fp64", {"dtype": np.float64}, None),
+    ("torch-fp64", {"dtype": torch.float64}, None),
+    ("multi-rhs", {"L": 4}, "dia"),
+    ("reorder", {"reorder": "rcm"}, None),
+    ("row_split", {"strategy": "row_split", "L": 4}, "row_split"),
+    ("ell-alias", {"strategy": "ell", "L": 4}, "row_split"),
+    ("bsr", {"strategy": "bsr"}, None),
+    ("bcoo", {"strategy": "bcoo"}, None),
+    ("nmajor", {"strategy": "nmajor"}, None),
+    ("nonzero_split", {"strategy": "nonzero_split"}, None),
 ]
 
 
-@pytest.mark.parametrize("name,kw", NOT_PORTED, ids=[n for n, _ in NOT_PORTED])
-def test_plan_matrix_names_roadmap_item(name, kw):
+@pytest.mark.parametrize("name,kw,kind", NOT_PORTED,
+                         ids=[n for n, _, _ in NOT_PORTED])
+def test_plan_matrix_names_roadmap_item(name, kw, kind):
+    """A plan the port does not build yet raises NotImplementedError
+    naming its ROADMAP item; one whose item is done (A8: multi-RHS
+    plans, ``row_split`` and its aliases) plans its family."""
     csr = gen.make_laplacian_grid2d(6).to_csr()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan_matrix(csr, device="cpu", **kw)
+    if kind is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            plan_matrix(csr, device="cpu", **kw)
+    else:
+        assert plan_kind(plan_matrix(csr, device="cpu", **kw)) == kind
 
 
 def test_explicit_dia_on_variable_band_names_b2():

@@ -9,18 +9,20 @@ Layering mirrors ``tpusparse``:
 
     formats/   COO, host CSR (+ ``to(device)``), DIA partition (numpy)
     io/        .mtx reader, synthetic generators (numpy)
-    ops/       plan_matrix / spmv dispatch, hybrid DIA + merge, BLAS-1
+    ops/       plan_matrix / spmv / spmm dispatch, hybrid DIA + merge,
+               BLAS-1 (single and multi-RHS)
     kernels/   hand-written CUDA kernels (``csrc/``) and their plain
                PyTorch versions, which serve CPU tensors only
-    solvers/   conjugate gradient
+    solvers/   conjugate gradient, single and blocked multi-RHS
     bench/     CUDA-event timing, flop and byte models
     utils/     result comparison, carrying JAX plans across
 
-The main path is host ingest -> ``plan_matrix(csr, "auto",
-device=...)`` -> ``spmv`` / ``cg_solve``.
+The main paths are host ingest -> ``plan_matrix(csr, "auto",
+device=...)`` -> ``spmv`` / ``cg_solve`` (one right-hand side) and ->
+``spmm`` / ``cg_solve_multi`` (X and B of shape (n, L)).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from tpusparse_torch.formats.coo import CooMatrix
 from tpusparse_torch.formats.csr import CsrMatrix
@@ -30,9 +32,10 @@ from tpusparse_torch.ops.spmv import (
     plan_kind,
     plan_matrix,
     plan_semantics,
+    spmm,
     spmv,
 )
-from tpusparse_torch.solvers.cg import CgResult, cg_solve
+from tpusparse_torch.solvers.cg import CgResult, cg_solve, cg_solve_multi
 
 __all__ = [
     "CgResult",
@@ -40,9 +43,11 @@ __all__ = [
     "CsrMatrix",
     "SpmvStrategy",
     "cg_solve",
+    "cg_solve_multi",
     "plan_kind",
     "plan_matrix",
     "plan_semantics",
     "read_market",
+    "spmm",
     "spmv",
 ]

@@ -3,9 +3,13 @@
   * SpMV GFLOP/s   = 2 * nnz * L / t
   * effective GB/s = (nnz * (2 sV + sO) + rows * L * (sO + sV)) / t
   * masked DIA     = (1 + 2L) * rows * 4 B (mask word, x, y)
+  * CSR SpMM       = nnz * (sV + sO) + (rows + 1) * sO
+                     + (cols + rows) * L * sV (payload and offsets once,
+                     X and Y once per lane)
+  * CG GFLOP/s     = (2 nnz + 10 n) * L * iters / t
 
-The TPU's measured stream ceilings are left out: a roofline share on
-the card is taken against the card's own published bandwidth.
+The TPU's measured stream ceilings are left out: a bound on the card is
+taken against the H100's published peaks (``bound_ms``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,34 @@ def spmv_bytes(nnz: int, rows: int, L: int = 1, value_bytes: int = 8,
 def dia_masked_bytes(rows: int, L: int = 1, value_bytes: int = 4) -> float:
     """Masked DIA: one 4 B mask word per row, x and y streamed once."""
     return (1 + 2 * L) * rows * value_bytes
+
+
+def spmm_bytes(nnz: int, rows: int, cols: int, L: int = 1,
+               value_bytes: int = 4, index_bytes: int = 4) -> float:
+    """Least bytes a CSR SpMM moves: column index and value of every
+    nonzero once, the row offsets once, X (cols, L) read once and Y
+    (rows, L) written once."""
+    return (nnz * (value_bytes + index_bytes) + (rows + 1) * index_bytes
+            + (cols + rows) * L * value_bytes)
+
+
+def cg_flops(nnz: int, n: int, L: int, iters: int) -> float:
+    return (2.0 * nnz + 10.0 * n) * L * iters
+
+
+# Published peaks of one NVIDIA H100 SXM at its full 700 W limit: HBM3
+# bandwidth and float32 outside the tensor cores.
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_FLOPS_PER_S = 67e12
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least milliseconds the card could take for work of ``flops``
+    float32 operations that moves ``nbytes``, and which of the two
+    bounds it ("bytes" or "operations")."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def gflops(flops: float, seconds: float) -> float:

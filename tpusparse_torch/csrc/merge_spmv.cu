@@ -8,7 +8,8 @@
 //
 //   1. search:  one thread per CTA tile binary-searches the merge path
 //               of (row end offsets, nonzero indices) for the tile's
-//               start coordinate (row, nz).
+//               start coordinate (row, nz) (merge_path.cuh, shared
+//               with K3).
 //   2. consume: each CTA stages its tile's products vals * x[col] and
 //               row end offsets in shared memory; each thread searches
 //               its own start inside the tile and walks kItems merge
@@ -37,51 +38,17 @@
 
 #include <cuda_runtime.h>
 
+#include "merge_path.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;                   // threads per CTA
-constexpr int kItems = 8;                     // merge items per thread
-constexpr int kTileItems = kBlock * kItems;   // merge items per CTA
-constexpr int kSearchThreads = 256;
-
-struct Coord {
-  int row;
-  int nz;
-};
-
-// The split of merge-path diagonal `diag` between list A = row_end[0 ..
-// a_len) (the end offset of each row) and list B = nz_begin, nz_begin+1,
-// ... (b_len nonzero indices). A row end comes first on the path when it
-// is <= the nonzero index it is compared with. Returns (rows, nonzeros)
-// consumed before the diagonal.
-__device__ __forceinline__ Coord merge_path_search(long long diag,
-                                                   const int* row_end,
-                                                   int a_len, int nz_begin,
-                                                   int b_len) {
-  long long lo = diag - b_len > 0 ? diag - b_len : 0;
-  long long hi = diag < a_len ? diag : a_len;
-  while (lo < hi) {
-    const long long pivot = (lo + hi) >> 1;
-    if (static_cast<long long>(row_end[pivot]) <=
-        nz_begin + (diag - pivot - 1)) {
-      lo = pivot + 1;
-    } else {
-      hi = pivot;
-    }
-  }
-  return Coord{static_cast<int>(lo), static_cast<int>(diag - lo)};
-}
-
-__global__ void __launch_bounds__(kSearchThreads)
-merge_search_kernel(const int* __restrict__ row_offsets, int num_rows,
-                    int nnz, int num_tiles, Coord* __restrict__ coords) {
-  const int t = blockIdx.x * kSearchThreads + threadIdx.x;
-  if (t > num_tiles) return;
-  const long long total = static_cast<long long>(num_rows) + nnz;
-  const long long tile_start = static_cast<long long>(t) * kTileItems;
-  const long long diag = tile_start < total ? tile_start : total;
-  coords[t] = merge_path_search(diag, row_offsets + 1, num_rows, 0, nnz);
-}
+using tps_merge::Coord;
+using tps_merge::kBlock;
+using tps_merge::kItems;
+using tps_merge::kSearchThreads;
+using tps_merge::kTileItems;
+using tps_merge::merge_path_search;
+using tps_merge::merge_search_kernel;
 
 __global__ void __launch_bounds__(kBlock)
 merge_consume_kernel(const int* __restrict__ row_offsets,
@@ -201,9 +168,7 @@ extern "C" int tps_merge_spmv(const void* row_offsets, const void* col_indices,
                               void* tile_coords, void* carry_rows,
                               void* carry_vals, int num_rows, int nnz,
                               int num_tiles, void* stream) {
-  const long long total = static_cast<long long>(num_rows) + nnz;
-  if (num_rows < 0 || nnz < 0 ||
-      num_tiles != static_cast<int>((total + kTileItems - 1) / kTileItems)) {
+  if (!tps_merge::tile_count_ok(num_rows, nnz, num_tiles)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles == 0) return 0;

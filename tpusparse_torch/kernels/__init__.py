@@ -9,4 +9,8 @@ kernel or raises.
                tpusparse/kernels/dia_stream.py::_spmm_dia_stream_edge_mask)
   merge_spmv   K2, merge-path CSR SpMV (replaces
                tpusparse/kernels/merge_spmv.py::_spmv_tiles)
+  spmm_merge   K3, merge-path CSR SpMM (replaces
+               tpusparse/kernels/spmm_merge.py::_spmm_tiles)
+  ell_spmm     K4, row-split CSR SpMM (replaces
+               tpusparse/kernels/ell_spmm.py::_spmm_ell)
 """

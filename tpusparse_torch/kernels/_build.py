@@ -9,7 +9,8 @@ The build happens at first use (``library()``), never at import, and
 only from the sources in the package. It writes into
 ``build/tpusparse_torch/<hash>/`` at the repository root, keyed by a
 hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+unchanged one is loaded as it is. The sources compile in parallel, one
+``nvcc`` process each.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpusparse_torch"
 LIB_NAME = "libtpusparse_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -39,6 +40,12 @@ SIGNATURES = {
     "tps_merge_spmv": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                        _P),
     "tps_merge_tile_items": (),
+    # row_offsets, col_indices, values, X, Y, tile_coords, carry_rows,
+    # carry_vals, num_rows, nnz, num_tiles, L, stream
+    "tps_merge_spmm": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                       _I32, _P),
+    # row_offsets, col_indices, values, X, Y, num_rows, L, stream
+    "tps_rowsplit_spmm": (_P, _P, _P, _P, _P, _I32, _I32, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -68,22 +75,42 @@ def _nvcc() -> str:
         "first use")
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen) and raise on the first that failed."""
+    outs = [(cmd, proc, *proc.communicate()) for cmd, proc in procs]
+    for cmd, proc, out, err in outs:
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{out}\n{err}")
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the hashed build directory (once) and
-    return the library path."""
+    return the library path. Each source compiles in its own ``nvcc``
+    process, all started together; one more links them."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    _run(procs)
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *[str(o) for o in objs]]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)
     return lib
 

@@ -173,3 +173,13 @@ def spmv_dia_stream(D: DiaStreamDevice, x, alpha=1.0, beta=0.0, y=None):
     if beta == 0.0 or y is None:
         return alpha * y_new if alpha != 1.0 else y_new
     return alpha * y_new + beta * y
+
+
+def spmm_dia_stream(D: DiaStreamDevice, X, alpha=1.0, beta=0.0, Y=None):
+    """Y = alpha * A @ X + beta * Y for X (num_cols, L): the transposed
+    product on X.T, transposed back (the (n, L) layout at the public
+    function, as in the JAX package)."""
+    Y_new = spmm_dia_stream_t(D, X.to(torch.float32).T.contiguous()).T
+    if beta == 0.0 or Y is None:
+        return alpha * Y_new if alpha != 1.0 else Y_new
+    return alpha * Y_new + beta * Y

@@ -1,0 +1,98 @@
+"""Row-split CSR SpMM — kernel K4 and its plan.
+
+Port of ``tpusparse/kernels/ell_spmm.py``, the row-splitting strategy
+(``strategy='row_split'``, aliases ``'ell'`` and ``'simple'``). The TPU
+plan packs the rows into 128-lane gather-job tiles
+(``tpusparse/formats/ell.py``) because its kernel needs one entry per
+vector lane; on the GPU a group of threads takes a row, so the plan is
+the CSR itself on the device (``RowSplitDevice``), and neither the job
+packing nor the TPU wrapper's refusal of matrices whose RHS block would
+not fit VMEM has a counterpart.
+
+K4 (``csrc/rowsplit_spmm.cu``) replaces the Pallas kernel
+``tpusparse/kernels/ell_spmm.py::_spmm_ell``: each row's thread group
+walks the row in CSR order, one RHS lane per thread, and writes each
+output once, so two runs give bitwise equal Y.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpusparse_torch.kernels import _build
+from tpusparse_torch.kernels.spmm_merge import check_operands, scaled_product
+from tpusparse_torch.ops.reference import csr_matmat
+
+# K4 launches since the count was last reset (plain runs not counted).
+LAUNCHES = 0
+
+
+@dataclasses.dataclass
+class RowSplitDevice:
+    """Row-split operand: a CSR matrix on a device (int32 offsets and
+    column indices, float32 values)."""
+
+    num_rows: int
+    num_cols: int
+    row_offsets: torch.Tensor
+    col_indices: torch.Tensor
+    values: torch.Tensor
+
+    @property
+    def nnz(self) -> int:
+        return int(self.col_indices.shape[0])
+
+
+def to_device_row_split(csr, device) -> RowSplitDevice:
+    """Row-split plan of a host CsrMatrix: the CSR arrays on ``device``."""
+    d = csr.to(device)
+    return RowSplitDevice(d.num_rows, d.num_cols, d.row_offsets,
+                          d.col_indices, d.values)
+
+
+def spmm_row_split_plain(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: the same gather, multiply and
+    per-row ``index_add_`` as K3's, in row order."""
+    return csr_matmat(A.num_rows, A.row_offsets, A.col_indices, A.values, X)
+
+
+def _launch(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
+    global LAUNCHES
+    lib = _build.library()
+    L = X.shape[1]
+    Y = torch.empty((A.num_rows, L), dtype=torch.float32, device=X.device)
+    if A.num_rows == 0:
+        return Y
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = lib.tps_rowsplit_spmm(
+            A.row_offsets.data_ptr(), A.col_indices.data_ptr(),
+            A.values.data_ptr(), X.data_ptr(), Y.data_ptr(), A.num_rows, L,
+            stream)
+    _build.check(rc, "tps_rowsplit_spmm")
+    LAUNCHES += 1
+    return Y
+
+
+def row_split_matmat(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
+    """A @ X for float32 X (num_cols, L): K4 on a CUDA tensor, the plain
+    version on a CPU tensor; any other device raises."""
+    check_operands(A, X, "K4")
+    if X.device.type == "cuda":
+        return _launch(A, X)
+    if X.device.type == "cpu":
+        return spmm_row_split_plain(A, X)
+    raise ValueError(f"no K4 path for device {X.device}")
+
+
+def spmm_ell(A: RowSplitDevice, X, alpha=1.0, beta=0.0, Y=None):
+    """Y = alpha * A @ X + beta * Y via K4, X (num_cols, L) or
+    (num_cols,)."""
+    return scaled_product(row_split_matmat, A, X, alpha, beta, Y)
+
+
+def spmv_ell(A: RowSplitDevice, x, alpha=1.0, beta=0.0, y=None):
+    """y = alpha * A @ x + beta * y: K4 at L = 1."""
+    return spmm_ell(A, x, alpha=alpha, beta=beta, Y=y)

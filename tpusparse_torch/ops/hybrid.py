@@ -2,7 +2,7 @@
 
 ``A = A_dia + A_rest`` elementwise, so ``y = A_dia x + A_rest x``: the
 dense diagonals run on the masked DIA kernel (K1), the scattered
-remainder on the merge plan (K2).
+remainder on the merge plan (K2 for SpMV, K3 for SpMM).
 """
 
 from __future__ import annotations
@@ -10,7 +10,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from tpusparse_torch.kernels.dia_stream import DiaStreamDevice, spmv_dia_stream
+from tpusparse_torch.kernels.dia_stream import (
+    DiaStreamDevice,
+    spmm_dia_stream,
+    spmv_dia_stream,
+)
 
 
 @dataclasses.dataclass
@@ -32,3 +36,16 @@ def spmv_hybrid(H: HybridPlan, x, alpha=1.0, beta=0.0, y=None):
     if beta == 0.0 or y is None:
         return alpha * y_new if alpha != 1.0 else y_new
     return alpha * y_new + beta * y
+
+
+def spmm_hybrid(H: HybridPlan, X, alpha=1.0, beta=0.0, Y=None):
+    """The same split for X (num_cols, L); K1 runs on X.T, so the DIA
+    part transposes at its boundary."""
+    from tpusparse_torch.ops.spmv import spmm
+
+    Y_new = spmm_dia_stream(H.dia, X)
+    if H.rest is not None:
+        Y_new = spmm(H.rest, X, beta=1.0, Y=Y_new)
+    if beta == 0.0 or Y is None:
+        return alpha * Y_new if alpha != 1.0 else Y_new
+    return alpha * Y_new + beta * Y

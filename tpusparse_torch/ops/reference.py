@@ -3,9 +3,13 @@
 Port of ``tpusparse/ops/reference.py``:
 
   * ``spmv_numpy`` — host golden model, always in float64;
-  * ``spmv_reference`` — plain-torch CSR product: gather x, multiply,
-    ``index_add_`` over expanded row ids. It is the ``reference``
-    strategy and the plain version behind the merge kernel.
+  * ``spmv_reference`` / ``spmm_reference`` — plain-torch CSR
+    products: gather x (or the rows of X), multiply, ``index_add_`` over
+    expanded row ids. They are the ``reference`` strategy, and
+    ``csr_matvec`` / ``csr_matmat`` are the plain versions behind the
+    merge and row-split kernels (in the dtype of the values they are
+    given, so float64 values give the float64 product the kernels are
+    held to).
 """
 
 from __future__ import annotations
@@ -34,6 +38,18 @@ def csr_matvec(num_rows: int, row_offsets, col_indices, values,
     return y.index_add_(0, rows, prod)
 
 
+def csr_matmat(num_rows: int, row_offsets, col_indices, values,
+               X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for CSR tensors and X (num_cols, L), in plain torch, in
+    the dtype of ``values``: gather the rows of X, scale, ``index_add_``
+    per row."""
+    rows = expand_row_ids(row_offsets, num_rows, col_indices.shape[0])
+    prod = values[:, None] * X.to(values.dtype)[col_indices.to(torch.int64)]
+    Y = torch.zeros((num_rows, X.shape[1]), dtype=values.dtype,
+                    device=values.device)
+    return Y.index_add_(0, rows, prod)
+
+
 def spmv_reference(csr, x, alpha=1.0, beta=0.0, y=None):
     """y = alpha * A @ x + beta * y for a CsrMatrix of torch tensors."""
     y_new = csr_matvec(csr.num_rows, csr.row_offsets, csr.col_indices,
@@ -41,6 +57,16 @@ def spmv_reference(csr, x, alpha=1.0, beta=0.0, y=None):
     if beta == 0.0 or y is None:
         return alpha * y_new
     return alpha * y_new + beta * y
+
+
+def spmm_reference(csr, X, alpha=1.0, beta=0.0, Y=None):
+    """Y = alpha * A @ X + beta * Y, X (num_cols, L), for a CsrMatrix of
+    torch tensors."""
+    Y_new = csr_matmat(csr.num_rows, csr.row_offsets, csr.col_indices,
+                       csr.values, X)
+    if beta == 0.0 or Y is None:
+        return alpha * Y_new
+    return alpha * Y_new + beta * Y
 
 
 def spmv_numpy(csr, x, alpha=1.0, beta=0.0, y=None) -> np.ndarray:

@@ -1,20 +1,29 @@
-"""Public SpMV with strategy planning (port of ``tpusparse/ops/spmv.py``).
+"""Public SpMV / SpMM with strategy planning (port of
+``tpusparse/ops/spmv.py``).
 
 ``plan_matrix`` builds a device operand for a host CsrMatrix;
-``spmv`` dispatches on the operand type. The strategies the port runs:
+``spmv`` (x of shape (num_cols,)) and ``spmm`` (X of shape
+(num_cols, L)) dispatch on the operand type. The strategies the port
+runs, at any L >= 1:
 
   AUTO       — a square constant-coefficient diagonal operator whose
                dense diagonals carry at least ``DIA_MIN_COVERAGE`` of
                the nonzeros goes to the masked DIA kernel (K1), any
-               scattered remainder to the merge-path kernel (K2);
-               everything else goes to K2, non-constant bands included.
+               scattered remainder to the merge plan; everything else
+               goes to the merge plan, non-constant bands included.
   DIA        — the same peel without the coverage gate.
-  MERGE      — K2 on the whole matrix.
+  MERGE      — the merge plan on the whole matrix: K2 for SpMV, K3 for
+               SpMM.
+  ROW_SPLIT  — (aliases 'ell', 'simple') the row-split kernel K4, for
+               SpMV and SpMM; never an AUTO choice.
   REFERENCE  — the plain-torch golden product on ``csr.to(device)``.
 
 The plan may differ from the JAX package's plan; the numbers may not.
-The other strategies, float64, reordering and L > 1 raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The JAX planner's ELL-occupancy gate between its merge and gather-job
+kernels measures TPU lane packing and is not ported: a gate between K3
+and K4 waits for measurements on the card. The other strategies,
+float64 and reordering raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -33,16 +42,24 @@ from tpusparse_torch.formats.dia import (
 from tpusparse_torch.kernels.dia_stream import (
     DiaStreamDevice,
     _maskable,
+    spmm_dia_stream,
     spmv_dia_stream,
     to_device_dia_stream,
+)
+from tpusparse_torch.kernels.ell_spmm import (
+    RowSplitDevice,
+    spmm_ell,
+    spmv_ell,
+    to_device_row_split,
 )
 from tpusparse_torch.kernels.merge_spmv import (
     MergeDevice,
     spmv_merge,
     to_device_merge,
 )
-from tpusparse_torch.ops.hybrid import HybridPlan, spmv_hybrid
-from tpusparse_torch.ops.reference import spmv_reference
+from tpusparse_torch.kernels.spmm_merge import spmm_merge
+from tpusparse_torch.ops.hybrid import HybridPlan, spmm_hybrid, spmv_hybrid
+from tpusparse_torch.ops.reference import spmm_reference, spmv_reference
 
 
 class SpmvStrategy(enum.Enum):
@@ -68,7 +85,6 @@ class SpmvStrategy(enum.Enum):
 
 # Where each strategy the port does not run yet is planned (ROADMAP.md).
 _NOT_PORTED = {
-    SpmvStrategy.ROW_SPLIT: "row-split ELL SpMM, kernel B5 (ROADMAP A8)",
     SpmvStrategy.NONZERO_SPLIT: "the nonzero_split strategy row (ROADMAP A14)",
     SpmvStrategy.BSR: "BCSR panel SpMM, kernel B6 (ROADMAP A8b)",
     SpmvStrategy.BCOO: "the vendor-baseline row (ROADMAP A6)",
@@ -94,21 +110,23 @@ def _check_float32(dtype) -> None:
 
 def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
                 L: int = 1, device="cuda", reorder=None):
-    """Build the device operand of a host CsrMatrix on ``device``."""
+    """Build the device operand of a host CsrMatrix on ``device``. ``L``
+    (>= 1) is the number of right-hand sides the plan will serve; every
+    plan of the port serves any L, so it does not change the choice."""
     if reorder:
         raise NotImplementedError(
             "reorder: reordered plans (kernel B13) are ROADMAP A10")
     strategy = SpmvStrategy.parse(strategy)
     _check_float32(dtype)
-    if L != 1:
-        raise NotImplementedError(
-            f"L={L}: multi-RHS plans (spmm, kernels B4/B5, K1 at L>1 in "
-            "CG) are ROADMAP A8")
+    if int(L) < 1:
+        raise ValueError(f"L={L}: the number of right-hand sides is >= 1")
     if strategy in _NOT_PORTED:
         raise NotImplementedError(
             f"strategy '{strategy.value}': {_NOT_PORTED[strategy]}")
     if strategy == SpmvStrategy.REFERENCE:
         return csr.to(device)
+    if strategy == SpmvStrategy.ROW_SPLIT:
+        return to_device_row_split(csr, device)
     if strategy in (SpmvStrategy.AUTO, SpmvStrategy.DIA):
         plan = _try_plan_dia(csr, strategy, device)
         if plan is not None:
@@ -152,6 +170,8 @@ def plan_kind(A) -> str:
         return "dia"
     if isinstance(A, MergeDevice):
         return "merge"
+    if isinstance(A, RowSplitDevice):
+        return "row_split"
     if isinstance(A, CsrMatrix):
         return "reference"
     raise TypeError(f"not a plan: {type(A).__name__}")
@@ -172,6 +192,28 @@ def spmv(A, x, alpha=1.0, beta=0.0, y=None):
         return spmv_dia_stream(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, MergeDevice):
         return spmv_merge(A, x, alpha=alpha, beta=beta, y=y)
+    if isinstance(A, RowSplitDevice):
+        return spmv_ell(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, CsrMatrix):
         return spmv_reference(A, x, alpha=alpha, beta=beta, y=y)
+    raise TypeError(f"not a plan: {type(A).__name__}")
+
+
+def spmm(A, X, alpha=1.0, beta=0.0, Y=None):
+    """Y = alpha * A @ X + beta * Y for any plan of ``plan_matrix``, X
+    of shape (num_cols, L); a 1-D X (and Y) is taken as L = 1 and the
+    result is 1-D."""
+    if X.dim() == 1:
+        Y2 = None if Y is None else Y.reshape(-1, 1)
+        return spmm(A, X.reshape(-1, 1), alpha=alpha, beta=beta, Y=Y2)[:, 0]
+    if isinstance(A, HybridPlan):
+        return spmm_hybrid(A, X, alpha=alpha, beta=beta, Y=Y)
+    if isinstance(A, DiaStreamDevice):
+        return spmm_dia_stream(A, X, alpha=alpha, beta=beta, Y=Y)
+    if isinstance(A, MergeDevice):
+        return spmm_merge(A, X, alpha=alpha, beta=beta, Y=Y)
+    if isinstance(A, RowSplitDevice):
+        return spmm_ell(A, X, alpha=alpha, beta=beta, Y=Y)
+    if isinstance(A, CsrMatrix):
+        return spmm_reference(A, X, alpha=alpha, beta=beta, Y=Y)
     raise TypeError(f"not a plan: {type(A).__name__}")

@@ -9,7 +9,16 @@ port's plan, so that both packages can run on the same operand:
     are the zero pad and are dropped), ``offsets``, ``vals`` and
     ``shape``;
   * ``"csr"`` — a merge plan from ``row_offsets``, ``col_indices``,
-    ``values`` and ``shape``.
+    ``values`` and ``shape``;
+  * ``"row_split"`` — a row-split plan (K4) from the same CSR arrays;
+  * ``"ell"`` — a row-split plan rebuilt from a JAX ``DeviceEll``'s
+    gather-job tiles: ``vals`` and ``local_cols`` (ntiles, J, 128),
+    ``row_block`` (ntiles,), ``job_cblk`` (ntiles * J,) and ``shape``.
+    Slot (t, j, lane) holds the entry at row ``row_block[t] * 128 +
+    lane`` and column ``job_cblk[t * J + j] * 128 + local_cols[t, j,
+    lane]``; entries are sorted by (row, column). A pad slot and an
+    explicit zero both read 0 and are dropped alike, so the rebuilt CSR
+    equals the original only for a matrix with no explicit zeros.
 """
 
 from __future__ import annotations
@@ -18,7 +27,10 @@ import numpy as np
 
 from tpusparse_torch.formats.csr import CsrMatrix
 from tpusparse_torch.kernels.dia_stream import from_mask_words
+from tpusparse_torch.kernels.ell_spmm import to_device_row_split
 from tpusparse_torch.kernels.merge_spmv import to_device_merge
+
+LANES = 128  # rows per row block and columns per column block of ELL
 
 
 def plan_from_arrays(kind: str, arrays: dict, device):
@@ -29,9 +41,34 @@ def plan_from_arrays(kind: str, arrays: dict, device):
             raise ValueError("mask words past num_rows must be the zero pad")
         return from_mask_words(n_rows, n_cols, arrays["offsets"],
                                arrays["vals"], words[:n_rows], device)
-    if kind == "csr":
+    if kind in ("csr", "row_split"):
         csr = CsrMatrix(n_rows, n_cols, np.asarray(arrays["row_offsets"]),
                         np.asarray(arrays["col_indices"]),
                         np.asarray(arrays["values"]))
-        return to_device_merge(csr, device)
-    raise ValueError(f"unknown plan kind {kind!r} (dia_masked, csr)")
+        if kind == "csr":
+            return to_device_merge(csr, device)
+        return to_device_row_split(csr, device)
+    if kind == "ell":
+        return to_device_row_split(_csr_of_ell(arrays, n_rows, n_cols),
+                                   device)
+    raise ValueError(
+        f"unknown plan kind {kind!r} (dia_masked, csr, row_split, ell)")
+
+
+def _csr_of_ell(arrays: dict, n_rows: int, n_cols: int) -> CsrMatrix:
+    vals = np.asarray(arrays["vals"])
+    ntiles, J, lanes = vals.shape
+    lcols = np.asarray(arrays["local_cols"]).astype(np.int64)
+    rows = (np.asarray(arrays["row_block"]).astype(np.int64)[:, None, None]
+            * LANES + np.arange(lanes)[None, None, :])
+    cblk = np.asarray(arrays["job_cblk"]).astype(np.int64).reshape(ntiles, J)
+    cols = cblk[:, :, None] * LANES + lcols
+    rows = np.broadcast_to(rows, vals.shape)
+    keep = vals != 0
+    r, c, v = rows[keep], cols[keep], vals[keep]
+    if np.any(r >= n_rows) or np.any(c >= n_cols):
+        raise ValueError("an ELL entry lies outside the matrix")
+    order = np.lexsort((c, r))
+    row_offsets = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(np.bincount(r, minlength=n_rows), out=row_offsets[1:])
+    return CsrMatrix(n_rows, n_cols, row_offsets, c[order], v[order])
