@@ -8,7 +8,12 @@ and exits non-zero on any failure:
     ``spmv`` / ``cg_solve`` (K1 masked DIA, K2 merge-path SpMV);
   * L right-hand sides: ``plan_matrix(csr, strategy, L=16)`` -> ``spmm``
     / ``cg_solve_multi`` (K1 at L > 1, K3 merge-path SpMM, K4 row-split
-    SpMM).
+    SpMM);
+  * variable-coefficient diagonal operators, one right-hand side: AUTO
+    -> ``spmv`` / ``cg_solve`` on float32 value planes, and
+    ``plan_dia_bf16`` -> ``cg_solve_bf16`` / ``cg_solve_refined_f32`` on
+    bf16 planes (K5 value-plane DIA);
+  * the same operators at L = 16: ``spmm`` / ``cg_solve_multi`` (K5).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -22,7 +27,11 @@ Phases, each printed on its own lines:
       the stated error bounds (u = 2^-24): K1 at L = 1, 4 and 16; K2,
       and K3 and K4 at L = 1, 3, 16 and 32, on lap3d-48, rmat-18-ef16,
       wheel-100000, ``data/real/*.mtx``, an empty-rows and an nnz = 0
-      CSR; two runs of K2, K3 and K4 must be bitwise equal;
+      CSR; two runs of K2, K3 and K4 must be bitwise equal; K5 with
+      float32 and bf16 planes at L = 1, 4 and 16 on var-7-48, var-27-32,
+      Trefethen_200, a rectangular band and the DIA part of a hybrid,
+      bitwise equal to its plain version and within 2Ku|A||x| of
+      float64;
   [3] the single-RHS slice at the bench fixture lap3d-48: AUTO must give
       a masked DIA plan; SpMV times (CUDA events per call as made, and
       device time from CUDA-graph replay) beside the plain versions', the
@@ -43,9 +52,19 @@ Phases, each printed on its own lines:
       (L, n) state) with B = A X_true, rmat_spd(17, 4) on AUTO (K3) and
       gr_30_30 on ``'row_split'`` (K4); every lane must converge with a
       float64 true residual < 1e-4; solved twice, the second timed;
+  [8] the variable-coefficient single-RHS path on var-7-160 (4.1M rows,
+      7 planes) and var-27-128 (2.1M rows, 27 planes): AUTO must plan
+      value planes (K5) and ``plan_dia_bf16`` bf16 planes; ``spmv`` on
+      each timed beside the plain version, ``torch.sparse`` and the
+      bound; f32 ``cg_solve`` on both, ``cg_solve_bf16`` and
+      ``cg_solve_refined_f32`` on var-27-128, each converged with a
+      float64 true residual < 1e-4 on the exact operator;
+  [9] the same at L = 16 on var-7-160: ``spmm`` (K5 alone on (L, n)
+      and through ``spmm``) and ``cg_solve_multi`` with (L, n) state;
   [5] launch counts of each main path, counted from 0 just before it
-      ([3]-[4] and [6]-[7]) and read just after: K1 and K2 must have run
-      on the first, K1, K3 and K4 on the second.
+      ([3]-[4], [6]-[7], [8] and [9]) and read just after: K1 and K2
+      must have run on the first, K1, K3 and K4 on the second, K5 on
+      the third and the fourth.
 
 The last two lines are a JSON object of the kernels and the result
 line ``{"ok": true, "device": {...}}``. The port imports no JAX.
@@ -59,6 +78,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -95,6 +115,72 @@ def k1_vs_plain(name, D, L, seed):
           f"(bound 2Ku|A||x| max {float(bound.max()):.3e}), bitwise equal "
           f"{bool(torch.equal(Y, Yp))}")
     return float(err.max())
+
+
+def dia_planes_of(csr, plane_dtype=torch.float32):
+    """The DIA part of a host CSR as K5's value planes on the card."""
+    from tpusparse_torch.formats.dia import (
+        partition_dia,
+        select_diagonals,
+        to_device_dia,
+    )
+
+    host, _ = partition_dia(csr, select_diagonals(csr))
+    return to_device_dia(host, "cuda", plane_dtype)
+
+
+def k5_vs_plain(name, D, L, seed):
+    """K5 against its plain version, bitwise, and against float64 on the
+    same (upcast) planes: |d|_i <= 2 K u (|A||x|)_i."""
+    from tpusparse_torch.kernels import dia_stream
+
+    XT = rand(seed, (L, D.num_cols))
+    Y = dia_stream.spmm_dia_planes_t(D, XT)
+    Yp = dia_stream.spmm_dia_planes_plain(D, XT)
+    Y64 = dia_stream.spmm_dia_planes_plain(D, XT.double())
+    AX = dia_stream.spmm_dia_planes_plain(
+        dataclasses.replace(D, data=D.data.abs()), XT.abs().double())
+    err = (Y.double() - Y64).abs()
+    bound = 2 * len(D.offsets) * U * AX
+    what = f"K5 {name} {str(D.data.dtype)[6:]} planes L={L}"
+    check(Y.shape == (L, D.num_rows) and torch.isfinite(Y).all(),
+          f"{what}: finite Y of shape ({L}, {D.num_rows})")
+    check(torch.equal(Y, Yp), f"{what}: bitwise equal to plain")
+    check((err <= bound).all(), f"{what}: within 2Ku|A||x| of float64")
+    print(f"[2] {what}: bitwise equal to plain, max|K5-float64| "
+          f"{float(err.max()):.3e} (bound max {float(bound.max()):.3e})")
+    return float((Y - Yp).abs().max())
+
+
+def plane_fixtures(gen, read_market):
+    """(name, host CSR) of K5's checks: variable stencils, Trefethen_200
+    (offsets to +-128), a rectangular band (x longer than y) and a
+    hybrid (var-7-48 plus scattered symmetric entries, whose DIA part
+    K5 runs)."""
+    from tpusparse_torch import CsrMatrix
+
+    rng = np.random.default_rng(7)
+    n, m = 3000, 3005
+    rect = sp.diags([rng.uniform(-2, 2, min(n, m - o) - max(0, -o))
+                     for o in (-7, 0, 5)], (-7, 0, 5), shape=(n, m)).tocsr()
+    var48 = gen.make_variable_stencil(48).to_csr()
+    S = var48.to_scipy()
+    r, c = rng.integers(0, S.shape[0], 3000), rng.integers(0, S.shape[0],
+                                                         3000)
+    E = sp.coo_matrix((np.full(6000, 0.01), (np.r_[r, c], np.r_[c, r])),
+                      shape=S.shape)
+    hyb = (S + E).tocsr()
+    return [
+        ("var-7-48", var48),
+        ("var-27-32", gen.make_variable_stencil(32, full=True,
+                                                seed=2).to_csr()),
+        ("Trefethen_200",
+         read_market(ROOT / "data/real/Trefethen_200.mtx").to_csr()),
+        ("rect-3000x3005", CsrMatrix(n, m, rect.indptr, rect.indices,
+                                     rect.data)),
+        ("hybrid-var-7-48", CsrMatrix(hyb.shape[0], hyb.shape[1],
+                                      hyb.indptr, hyb.indices, hyb.data)),
+    ]
 
 
 def k2_vs_plain(name, csr, seed):
@@ -317,17 +403,70 @@ def slice_spmm(tag, C, plans, seed):
     return out
 
 
-def run_cg(tag, A, csr, b):
-    """CG at tol 1e-5 through ``cg_solve``, twice (the first solve pays
-    one-time costs: module loads, allocator growth); checks and times the
-    second. Returns (iters, ms/iter, float64 true residual)."""
-    from tpusparse_torch import cg_solve
+def slice_var_spmv(tag, csr, seed):
+    """[8] AUTO (must be float32 value planes: K5) and ``plan_dia_bf16``
+    (bf16 planes) on a variable-coefficient band: ``spmv`` checked
+    against float64 and timed beside the plain version, the library call
+    and the bound. Returns (AUTO plan, bf16 plan, timings by plane type)."""
+    from tpusparse_torch import plan_dia_bf16, plan_kind, plan_matrix, spmv
+    from tpusparse_torch.bench.models import dia_planes_bytes, spmv_flops
+    from tpusparse_torch.bench.timing import cuda_time_ms
+    from tpusparse_torch.formats.dia import DiaDevice
+    from tpusparse_torch.kernels import dia_stream
 
+    A32 = plan_matrix(csr, "auto", device="cuda")
+    check(plan_kind(A32) == "dia" and isinstance(A32.dia, DiaDevice),
+          f"{tag}: AUTO gives value planes (got {plan_kind(A32)})")
+    A16 = plan_dia_bf16(csr, device="cuda")
+    check(plan_kind(A16) == "dia_bf16"
+          and A16.dia.data.dtype == torch.bfloat16,
+          f"{tag}: plan_dia_bf16 gives bf16 planes (got {plan_kind(A16)})")
+    n, K = csr.num_rows, len(A32.dia.offsets)
+    x = rand(seed, csr.num_cols)
+    XT = x.reshape(1, -1)
+    times = {}
+    for label, P, plane_bytes in (("f32", A32, 4), ("bf16", A16, 2)):
+        y = spmv(P, x)
+        Y64 = dia_stream.spmm_dia_planes_plain(P.dia, XT.double())[0]
+        AX = dia_stream.spmm_dia_planes_plain(
+            dataclasses.replace(P.dia, data=P.dia.data.abs()),
+            XT.abs().double())[0]
+        check(torch.isfinite(y).all() and y.shape == (n,),
+              f"{tag} {label}: finite y of shape ({n},)")
+        check(((y.double() - Y64).abs() <= 2 * K * U * AX).all(),
+              f"{tag} {label}: y within 2Ku|A||x| of float64 on its planes")
+        times[label] = time_pair(
+            lambda: spmv(P, x),
+            lambda: dia_stream.spmm_dia_planes_plain(P.dia, XT))
+    C = csr.to("cuda")
+    lib = library_csr(C)
+    lib_ms = cuda_time_ms(lambda: lib @ x)
+    y16, y32 = spmv(A16, x), spmv(A32, x)
+    rel = float((y16 - y32).abs().max() / y32.abs().max())
+    print(f"[8] {tag}: {n} rows, {csr.nnz} nnz, {K} planes; bf16-plane "
+          f"operator's relative deviation {rel:.3e}")
+    check(rel < 3e-2, f"{tag}: bf16-plane deviation {rel} below 3e-2")
+    for label, plane_bytes in (("f32", 4), ("bf16", 2)):
+        t = times[label]
+        t["library"] = lib_ms
+        t["bound"] = report(8, f"{tag} spmv {label} planes (K5)", t,
+                            spmv_flops(csr.nnz),
+                            dia_planes_bytes(n, n, K, 1, plane_bytes))
+    del C, lib
+    return A32, A16, times
+
+
+def run_solve(phase, tag, solve, csr, b):
+    """Run ``solve()`` twice (the first solve pays one-time costs: module
+    loads, allocator growth); checks and times the second against the
+    float64 CSR ``csr``. Returns (iterations, ms/iteration, float64 true
+    residual); a refinement solve counts its inner iterations and has
+    converged when its exact residual is below the tolerance."""
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = cg_solve(A, b, max_iters=10000, tolerance=CG_TOL)
+        res = solve()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     first, ms = walls
@@ -335,18 +474,32 @@ def run_cg(tag, A, csr, b):
     b64 = b.double().cpu().numpy()
     x64 = res.x.double().cpu().numpy()
     true_res = float(np.linalg.norm(b64 - A64 @ x64) / np.linalg.norm(b64))
-    check(res.converged, f"{tag}: CG converged")
+    iters = getattr(res, "iterations", getattr(res, "inner_iterations", 0))
+    residual = float(res.residual)
+    converged = getattr(res, "converged", residual < CG_TOL)
+    check(converged, f"{tag}: converged")
     check(np.isfinite(x64).all(), f"{tag}: finite x")
     check(true_res < TRUE_RESIDUAL_MAX, f"{tag}: true residual {true_res}")
-    per = ms / max(res.iterations, 1)
-    print(f"[4] cg {tag}: {res.iterations} iterations, converged, "
-          f"residual {res.residual:.3e}, float64 true residual "
+    per = ms / max(iters, 1)
+    extra = "".join(f", {k} {getattr(res, k)}" for k in
+                    ("replacements", "restarts", "refinements")
+                    if hasattr(res, k))
+    print(f"[{phase}] {tag}: {iters} iterations{extra}, converged, "
+          f"residual {residual:.3e}, float64 true residual "
           f"{true_res:.3e}, {ms:.1f} ms ({per:.4f} ms/iteration; first "
           f"solve {first:.1f} ms)")
-    return res.iterations, per, true_res
+    return iters, per, true_res
 
 
-def run_cg_multi(tag, A, C, B):
+def run_cg(tag, A, csr, b, phase=4):
+    """CG at tol 1e-5 through ``cg_solve`` (``run_solve``)."""
+    from tpusparse_torch import cg_solve
+
+    return run_solve(phase, f"cg {tag}", lambda: cg_solve(
+        A, b, max_iters=10000, tolerance=CG_TOL), csr, b)
+
+
+def run_cg_multi(tag, A, C, B, phase=7):
     """``cg_solve_multi`` at tol 1e-5, twice (the second timed), on the
     plan ``A`` of the CSR operand ``C`` (on the card); every lane must
     converge with a float64 true residual < 1e-4. Returns (iterations,
@@ -373,7 +526,8 @@ def run_cg_multi(tag, A, C, B):
     check((true_res < TRUE_RESIDUAL_MAX).all(),
           f"{tag}: true residuals {true_res}")
     per = ms / max(res.iterations, 1)
-    print(f"[7] cg_multi {tag} L={B.shape[1]}: {res.iterations} iterations, "
+    print(f"[{phase}] cg_multi {tag} L={B.shape[1]}: {res.iterations} "
+          f"iterations, "
           f"all {B.shape[1]} lanes converged, residual max "
           f"{float(res.residual.max()):.3e}, float64 true residual max "
           f"{true_res.max():.3e}, {ms:.1f} ms ({per:.4f} ms/iteration; "
@@ -385,7 +539,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
-    from tpusparse_torch import CsrMatrix, plan_matrix
+    from tpusparse_torch import CsrMatrix, plan_kind, plan_matrix
     from tpusparse_torch.io import generators as gen
     from tpusparse_torch.io.market import read_market
     from tpusparse_torch.kernels import (
@@ -435,14 +589,31 @@ def main() -> int:
     k4_err = max(spmm_vs_plain("K4", name, csr, 60 + i)
                  for i, (name, csr) in enumerate(fixtures))
     rmat18 = fixtures[1][1]
+    k5_err = max(
+        k5_vs_plain(name, dia_planes_of(csr, pd), L, 80 + L)
+        for name, csr in plane_fixtures(gen, read_market)
+        for pd in (torch.float32, torch.bfloat16) for L in (1, 4, 16))
     torch.cuda.synchronize()
     print(f"[2] done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # [3]-[4] the single-RHS path; count launches from here on
-    modules = {"K1": dia_stream, "K2": merge_spmv, "K3": spmm_merge,
-               "K4": ell_spmm}
-    for m in modules.values():
-        m.LAUNCHES = 0
+    counters = {"K1": (dia_stream, "LAUNCHES"), "K2": (merge_spmv, "LAUNCHES"),
+                "K3": (spmm_merge, "LAUNCHES"), "K4": (ell_spmm, "LAUNCHES"),
+                "K5": (dia_stream, "PLANES_LAUNCHES")}
+
+    def reset_counts():
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+
+    def read_counts(what, must):
+        torch.cuda.synchronize()
+        counts = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+        print(f"[5] {what} launches: {counts}", flush=True)
+        check(all(counts[k] > 0 for k in must),
+              f"{', '.join(must)} launched on the {what}")
+        return counts
+
+    reset_counts()
     slice_spmv(3, "lap3d-48", lap48, 30)
     lap160 = gen.make_laplacian_grid3d(160).to_csr()
     A160, M160, t160 = slice_spmv(4, "lap3d-160", lap160, 31)
@@ -455,15 +626,10 @@ def main() -> int:
                      ("gr_30_30 merge (K2)", gr)):
         b = rand(33, csr.num_rows)
         run_cg(tag, plan_matrix(csr, "merge", device="cuda"), csr, b)
-    torch.cuda.synchronize()
-    path1 = {k: m.LAUNCHES for k, m in modules.items()}
-    print(f"[5] single-RHS path launches: {path1}", flush=True)
-    check(path1["K1"] > 0 and path1["K2"] > 0,
-          "K1 and K2 launched on the single-RHS path")
+    path1 = read_counts("single-RHS path", ("K1", "K2"))
 
     # [6]-[7] the multi-RHS path, counted from 0 again
-    for m in modules.values():
-        m.LAUNCHES = 0
+    reset_counts()
     del A160, M160
     A16 = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda")
     M16 = plan_matrix(lap160, "merge", L=L_MULTI, device="cuda")
@@ -490,24 +656,100 @@ def main() -> int:
     G = plan_matrix(gr, "row_split", L=L_MULTI, device="cuda")
     run_cg_multi("gr_30_30 row_split (K4)", G, G,
                  rand(38, (gr.num_rows, L_MULTI)))
-    torch.cuda.synchronize()
-    path2 = {k: m.LAUNCHES for k, m in modules.items()}
-    print(f"[5] multi-RHS path launches: {path2}")
-    check(path2["K1"] > 0 and path2["K3"] > 0 and path2["K4"] > 0,
-          "K1, K3 and K4 launched on the multi-RHS path")
-    print(f"[5] main-path launches: K1 {path1['K1'] + path2['K1']}, K2 "
-          f"{path1['K2'] + path2['K2']}, K3 {path1['K3'] + path2['K3']}, "
-          f"K4 {path1['K4'] + path2['K4']}")
+    path2 = read_counts("multi-RHS path", ("K1", "K3", "K4"))
+    del A16, M16, B160, X_true, R17, G, lap160
+    torch.cuda.empty_cache()
+
+    # [8] variable-coefficient operators, one right-hand side, counted
+    # from 0 again
+    from tpusparse_torch import (
+        cg_solve_bf16,
+        cg_solve_multi,
+        cg_solve_refined_f32,
+        spmm,
+    )
+    from tpusparse_torch.bench.models import dia_planes_bytes, spmv_flops
+    from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
+
+    var7 = gen.make_variable_stencil(160, dims=3, shift=1.0,
+                                     seed=0).to_csr()
+    var27 = gen.make_variable_stencil(128, dims=3, full=True, shift=1.0,
+                                      seed=2).to_csr()
+    print(f"[8] var-7-160 and var-27-128 built at "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    reset_counts()
+    V7, _, t8_7 = slice_var_spmv("var-7-160", var7, 40)
+    V27, V27b, t8_27 = slice_var_spmv("var-27-128", var27, 41)
+    b7 = torch.from_numpy((var7.to_scipy() @ np.random.default_rng(
+        42).standard_normal(var7.num_cols)).astype(np.float32)).cuda()
+    run_cg("var-7-160 auto (K5)", V7, var7, b7, phase=8)
+    b27 = torch.from_numpy((var27.to_scipy() @ np.random.default_rng(
+        43).standard_normal(var27.num_cols)).astype(np.float32)).cuda()
+    it32 = run_cg("var-27-128 auto (K5)", V27, var27, b27, phase=8)[0]
+    it16 = run_solve(8, "cg_bf16 var-27-128 (K5 bf16, f32 replacements)",
+                     lambda: cg_solve_bf16(V27b, V27, b27,
+                                           tolerance=CG_TOL),
+                     var27, b27)[0]
+    itr = run_solve(8, "cg_refined_f32 var-27-128 (K5 bf16 inner)",
+                    lambda: cg_solve_refined_f32(V27b, V27, b27,
+                                                 tolerance=CG_TOL),
+                    var27, b27)[0]
+    print(f"[8] var-27-128 iterations: cg_solve {it32}, cg_solve_bf16 "
+          f"{it16}, cg_solve_refined_f32 {itr} (inner)")
+    path3 = read_counts("variable-coefficient single-RHS path", ("K5",))
+    del V27, V27b, b27, var27
+    torch.cuda.empty_cache()
+
+    # [9] variable-coefficient operators at L = 16, counted from 0 again
+    reset_counts()
+    W = plan_matrix(var7, "auto", L=L_MULTI, device="cuda")
+    check(plan_kind(W) == "dia" and W.rest is None
+          and not isinstance(W.dia, dia_stream.DiaStreamDevice),
+          "var-7-160 AUTO at L=16 plans value planes")
+    C7 = var7.to("cuda")
+    X = rand(44, (var7.num_cols, L_MULTI))
+    Y = spmm(W, X)
+    Y64, _, AX = row_bound(C7, X)
+    K7 = len(W.dia.offsets)
+    check(Y.shape == (var7.num_rows, L_MULTI) and torch.isfinite(Y).all(),
+          "var-7-160 spmm: finite Y")
+    check(((Y.double() - Y64).abs() <= 2 * K7 * U * AX).all(),
+          "var-7-160 spmm: Y within 2Ku|A||X| of float64")
+    XT = X.T.contiguous()
+    t9 = time_pair(lambda: dia_stream.spmm_dia_planes_t(W.dia, XT),
+                   lambda: dia_stream.spmm_dia_planes_plain(W.dia, XT))
+    lib = library_csr(C7)
+    t9["library"] = cuda_time_ms(lambda: lib @ X)
+    del lib
+    t9["bound"] = report(9, f"var-7-160 K5 alone on (L, n) L={L_MULTI}", t9,
+                         spmv_flops(var7.nnz, L_MULTI),
+                         dia_planes_bytes(var7.num_rows, var7.num_cols, K7,
+                                          L_MULTI))
+    call = (cuda_time_ms(lambda: spmm(W, X)), graph_time_ms(lambda: spmm(W, X)))
+    print(f"[9] var-7-160 spmm auto through spmm (with the transposes): "
+          f"{call[0]:.4f} ms/call, device {call[1]:.4f} ms")
+    X_true = torch.from_numpy(np.random.default_rng(45).standard_normal(
+        (var7.num_cols, L_MULTI))).cuda()
+    B7 = csr_matmat(C7.num_rows, C7.row_offsets, C7.col_indices,
+                    C7.values.double(), X_true).float()
+    run_cg_multi("var-7-160 auto (K5, (L, n) state)", W, C7, B7, phase=9)
+    path4 = read_counts("variable-coefficient multi-RHS path", ("K5",))
+    paths = (path1, path2, path3, path4)
+    print("[5] main-path launches: " + ", ".join(
+        f"{k} {sum(p[k] for p in paths)}" for k in counters))
 
     def entry(name, source, replaces, key, err, t, fixture):
         return {"name": name, "route": "cuda",
                 "source": f"tpusparse_torch/csrc/{source}",
                 "replaces": replaces,
-                "launches": path1[key] + path2[key], "max_abs_err": err,
+                "launches": sum(p[key] for p in paths), "max_abs_err": err,
                 "ms": t["kernel"][1], "plain_ms": t["plain"][1],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library"], "fixture": fixture}
 
+    # K5 replaces B2 and its MXU-rotation body B2', which compute the same y
+    b2, b2_mxu = ("tpusparse/kernels/dia_stream.py:739",
+                  "tpusparse/kernels/dia_stream.py:904")
     kernels = [
         entry("K1 masked DIA SpMV", "dia_masked.cu",
               "tpusparse/kernels/dia_stream.py:809", "K1", k1_err,
@@ -525,6 +767,22 @@ def main() -> int:
         entry("K4 row-split CSR SpMM", "rowsplit_spmm.cu",
               "tpusparse/kernels/ell_spmm.py:132", "K4", k4_err,
               t6["K4"], f"lap3d-160 spmm L={L_MULTI}, device time"),
+        entry("K5 value-plane DIA SpMV, f32 planes", "dia_planes.cu", b2,
+              "K5", k5_err, t8_7["f32"], "var-7-160 spmv L=1, device time"),
+        entry("K5 value-plane DIA SpMV, f32 planes", "dia_planes.cu", b2,
+              "K5", k5_err, t8_27["f32"],
+              "var-27-128 spmv L=1, device time"),
+        entry("K5 value-plane DIA SpMV, bf16 planes", "dia_planes.cu", b2,
+              "K5", k5_err, t8_27["bf16"],
+              "var-27-128 spmv L=1, device time"),
+        entry("K5 value-plane DIA SpMV, bf16 planes", "dia_planes.cu", b2,
+              "K5", k5_err, t8_7["bf16"], "var-7-160 spmv L=1, device time"),
+        entry("K5 value-plane DIA SpMM, f32 planes", "dia_planes.cu", b2,
+              "K5", k5_err, t9, f"var-7-160 spmm L={L_MULTI} on (L, n), "
+              "device time"),
+        entry("K5 as the port of B2' (MXU-rotation body), f32 planes",
+              "dia_planes.cu", b2_mxu, "K5", k5_err, t8_7["f32"],
+              "var-7-160 spmv L=1, device time"),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

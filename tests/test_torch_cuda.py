@@ -7,20 +7,31 @@ no JAX, run them without the JAX conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from tpusparse_torch import (
     CsrMatrix,
     cg_solve,
+    cg_solve_bf16,
     cg_solve_multi,
+    cg_solve_multi_refined_f32,
+    plan_dia_bf16,
     plan_kind,
     plan_matrix,
     spmm,
     spmv,
+)
+from tpusparse_torch.formats.dia import (
+    DiaDevice,
+    partition_dia,
+    select_diagonals,
+    to_device_dia,
 )
 from tpusparse_torch.io import generators as gen
 from tpusparse_torch.io.market import read_market
@@ -185,6 +196,113 @@ def test_cg_multi_on_card_matches_cpu(cuda):
         assert abs(r.iterations - r_cpu.iterations) <= 1
         assert torch.all(torch.linalg.norm(r.x.cpu() - r_cpu.x, dim=0)
                          <= 1e-4 * torch.linalg.norm(r_cpu.x, dim=0))
+
+
+def _planes(csr, dev, plane_dtype=torch.float32):
+    host, rest = partition_dia(csr, select_diagonals(csr))
+    assert rest.nnz == 0
+    return to_device_dia(host, dev, plane_dtype)
+
+
+def _band(n, m, offsets, seed):
+    """n x m band with random values on ``offsets``."""
+    rng = np.random.default_rng(seed)
+    A = sp.diags([rng.uniform(-2, 2, min(n, m - o) - max(0, -o))
+                  for o in offsets], offsets, shape=(n, m)).tocsr()
+    return CsrMatrix(n, m, A.indptr, A.indices, A.data.astype(np.float32))
+
+
+PLANE_CASES = {
+    "var-7-12": lambda: gen.make_variable_stencil(12).to_csr(),
+    "var-27-8": lambda: gen.make_variable_stencil(8, full=True,
+                                                  seed=2).to_csr(),
+    "Trefethen_200": lambda: read_market(
+        ROOT / "data/real/Trefethen_200.mtx").to_csr(),
+    "rect-300x305": lambda: _band(300, 305, [-7, 0, 3, 5], 1),
+    "neg-only": lambda: _band(200, 200, [-150, -11], 2),
+}
+
+
+@pytest.mark.parametrize("L", [1, 4, 16])
+@pytest.mark.parametrize("plane_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(PLANE_CASES))
+def test_k5_matches_plain_bitwise(cuda, name, plane_dtype, L):
+    D = _planes(PLANE_CASES[name](), cuda, plane_dtype)
+    XT = _x(None, L, cuda, (L, D.num_cols))
+    before = dia_stream.PLANES_LAUNCHES
+    Y = dia_stream.spmm_dia_planes_t(D, XT)
+    assert dia_stream.PLANES_LAUNCHES == before + 1
+    assert Y.shape == (L, D.num_rows) and Y.device == XT.device
+    assert torch.equal(Y, dia_stream.spmm_dia_planes_plain(D, XT))
+    absD = dataclasses.replace(D, data=D.data.abs())
+    AX = dia_stream.spmm_dia_planes_plain(absD, XT.abs().double())
+    exact = dia_stream.spmm_dia_planes_plain(D, XT.double())
+    assert torch.all((Y.double() - exact).abs()
+                     <= len(D.offsets) * U * AX * 1.01)
+
+
+def test_k5_empty_operands_launch_nothing(cuda):
+    D = _planes(PLANE_CASES["var-7-12"](), cuda)
+    before = dia_stream.PLANES_LAUNCHES
+    Y = dia_stream.spmm_dia_planes_t(
+        D, torch.zeros(0, D.num_cols, device=cuda))
+    assert Y.shape == (0, D.num_rows)
+    E = DiaDevice(0, 5, (0, 2), torch.zeros(2, 0, device=cuda))
+    assert dia_stream.spmm_dia_planes_t(
+        E, torch.ones(3, 5, device=cuda)).shape == (3, 0)
+    Z = DiaDevice(4, 4, (), torch.zeros(0, 4, device=cuda))
+    assert torch.equal(dia_stream.spmm_dia_planes_t(
+        Z, torch.ones(2, 4, device=cuda)), torch.zeros(2, 4, device=cuda))
+    assert dia_stream.PLANES_LAUNCHES == before
+
+
+def test_k5_no_fallback_on_cuda_tensors(cuda):
+    D = _planes(PLANE_CASES["var-7-12"](), cuda)
+    n = D.num_rows
+    with pytest.raises(TypeError):
+        dia_stream.spmm_dia_planes_t(
+            D, torch.zeros(1, n, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="same device"):
+        dia_stream.spmm_dia_planes_t(D, torch.zeros(1, n))
+    before = dia_stream.PLANES_LAUNCHES
+    y = spmv(plan_matrix(gen.make_variable_stencil(12).to_csr(), "auto",
+                         device=cuda), torch.ones(n, device=cuda))
+    assert y.is_cuda and dia_stream.PLANES_LAUNCHES == before + 1
+
+
+def test_k5_equals_k1_on_constant_band(cuda):
+    csr = gen.make_laplacian_grid3d(16).to_csr()
+    D1 = plan_matrix(csr, "auto", device=cuda).dia
+    D5 = _planes(csr, cuda)
+    XT = _x(None, 4, cuda, (4, csr.num_cols))
+    assert torch.equal(dia_stream.spmm_dia_stream_t(D1, XT),
+                       dia_stream.spmm_dia_planes_t(D5, XT))
+
+
+def test_variable_band_solvers_on_card_match_cpu(cuda):
+    csr = gen.make_variable_stencil(8, full=True, seed=2,
+                                    shift=1.0).to_csr()
+    b = _x(csr.num_rows, 4, "cpu")
+    B = _x(None, 5, "cpu", (csr.num_rows, 4))
+    plans = {dev: (plan_matrix(csr, "auto", device=dev),
+                   plan_dia_bf16(csr, device=dev)) for dev in ("cpu", cuda)}
+    before = dia_stream.PLANES_LAUNCHES
+    runs = {dev: (cg_solve(A32, b.to(dev)), cg_solve_multi(A32, B.to(dev)),
+                  cg_solve_bf16(A16, A32, b.to(dev)),
+                  cg_solve_multi_refined_f32(A16, A32, B.to(dev)))
+            for dev, (A32, A16) in plans.items()}
+    assert dia_stream.PLANES_LAUNCHES > before
+    (c1, cm, c16, cr), (g1, gm, g16, gr) = runs["cpu"], runs[cuda]
+    assert plan_kind(plans[cuda][0]) == "dia"
+    assert plan_kind(plans[cuda][1]) == "dia_bf16"
+    assert g1.converged and abs(g1.iterations - c1.iterations) <= 1
+    assert bool(gm.converged.all()) and abs(gm.iterations - cm.iterations) <= 1
+    assert g16.converged and abs(g16.iterations - c16.iterations) <= 2
+    assert gr.refinements == cr.refinements
+    for g, c in ((g1, c1), (gm, cm), (g16, c16), (gr, cr)):
+        assert torch.linalg.norm(g.x.cpu() - c.x) \
+            <= 1e-4 * torch.linalg.norm(c.x)
 
 
 @pytest.mark.parametrize("kernel", list(SPMM_KERNELS))

@@ -127,6 +127,16 @@ def test_models_match_jax():
         == jmodels.cg_flops(28518400, 4096000, 16, 70)
 
 
+def test_dia_planes_bytes():
+    # var-7-160: 7 f32 planes, x and y once; bf16 planes at 2 B, L = 16
+    n = 4096000
+    assert models.dia_planes_bytes(n, n, 7) == 7 * 4 * n + 2 * 4 * n
+    assert models.dia_planes_bytes(n, n, 27, L=16, plane_bytes=2) \
+        == 27 * 2 * n + 16 * 2 * 4 * n
+    assert models.dia_planes_bytes(130, 135, 3, L=2) \
+        == 3 * 4 * 130 + 2 * (130 + 135) * 4
+
+
 def test_spmm_bytes_and_bound():
     # lap3d-160 at L = 16: payload 8 B per nonzero, offsets, X and Y
     nnz, n, L = 28518400, 4096000, 16
@@ -179,12 +189,15 @@ def test_spmv_reference_alpha_beta():
     np.testing.assert_allclose(y.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
+# the JAX package's AUTO families: its dense diagonals carry >= 30 % of
+# rmat-7's and of bibd_9_3's (36 x 84) nonzeros, so both peel them
 PLAN_KINDS = [
     ("lap3d", lambda: gen.make_laplacian_grid3d(6), "dia"),
     ("wheel", lambda: gen.make_wheel(40), "hybrid_dia"),
-    ("rmat", lambda: gen.make_rmat(7), "merge"),
-    ("varstencil", lambda: gen.make_variable_stencil(5), "merge"),
-    ("bibd", lambda: read_market(ROOT / "data/real/bibd_9_3.mtx"), "merge"),
+    ("rmat", lambda: gen.make_rmat(7), "hybrid_dia"),
+    ("varstencil", lambda: gen.make_variable_stencil(5), "dia"),
+    ("bibd", lambda: read_market(ROOT / "data/real/bibd_9_3.mtx"),
+     "hybrid_dia"),
 ]
 
 
@@ -231,9 +244,18 @@ def test_plan_matrix_names_roadmap_item(name, kw, kind):
 
 
 def test_explicit_dia_on_variable_band_names_b2():
+    """Explicit 'dia' on a variable band plans the value-plane operand
+    of K5, the port of B2; a constant band stays masked (K1)."""
     csr = gen.make_variable_stencil(5).to_csr()
-    with pytest.raises(NotImplementedError, match="B2"):
-        plan_matrix(csr, "dia", device="cpu")
+    A = plan_matrix(csr, "dia", device="cpu")
+    assert plan_kind(A) == "dia" and isinstance(A.dia, dia.DiaDevice)
+    assert A.rest is None and A.dia.data.dtype == torch.float32
+    host, _ = dia.partition_dia(csr, dia.select_diagonals(csr))
+    np.testing.assert_array_equal(A.dia.data.numpy(),
+                                  host.data.astype(np.float32))
+    lap = gen.make_laplacian_grid3d(5).to_csr()
+    assert not isinstance(plan_matrix(lap, "dia", device="cpu").dia,
+                          dia.DiaDevice)
 
 
 def test_timers_refuse_without_card():
@@ -256,7 +278,8 @@ def test_port_sources_import_no_jax():
 
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, tpusparse_torch, tpusparse_torch.utils.carry, "
-            "tpusparse_torch.bench.timing, tpusparse_torch.bench.models; "
+            "tpusparse_torch.bench.timing, tpusparse_torch.bench.models, "
+            "tpusparse_torch.ops.dia, tpusparse_torch.solvers.refine; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpusparse')]; "
             "assert not bad, bad")

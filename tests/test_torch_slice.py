@@ -7,8 +7,8 @@ seeds. The JAX side runs as its own tests run it (float32 plans,
 Pallas in interpret mode on the CPU). Held to:
 
   * an SpMV within 1e-5 * max(|A||x|), with the same AUTO plan family
-    where the port has it (a non-constant band is JAX's value-plane DIA
-    and the port's merge kernel until B2 is ported);
+    (a non-constant band is value-plane DIA in both packages: B2 in
+    JAX, K5 in the port);
   * CG: the same ``converged``, iterations within +-1, the port's
     float64 true residual < 1e-4, and ``||x_port - x_jax|| / ||x_jax||
     <= 1e-4``.
@@ -46,9 +46,9 @@ FIXTURES = {
     "rmat_spd-10": (lambda: jgen.make_rmat_spd(10),
                     lambda: gen.make_rmat_spd(10), "merge", "merge"),
     "Trefethen_200": (lambda: jread_market(TREF),
-                      lambda: read_market(TREF), "merge", "dia"),
+                      lambda: read_market(TREF), "dia", "dia"),
     "varstencil-8": (lambda: jgen.make_variable_stencil(8),
-                     lambda: gen.make_variable_stencil(8), "merge", "dia"),
+                     lambda: gen.make_variable_stencil(8), "dia", "dia"),
 }
 
 

@@ -13,22 +13,26 @@ Layering mirrors ``tpusparse``:
                BLAS-1 (single and multi-RHS)
     kernels/   hand-written CUDA kernels (``csrc/``) and their plain
                PyTorch versions, which serve CPU tensors only
-    solvers/   conjugate gradient, single and blocked multi-RHS
+    solvers/   conjugate gradient, single and blocked multi-RHS; the
+               bf16-plane mixed-precision solvers
     bench/     CUDA-event timing, flop and byte models
     utils/     result comparison, carrying JAX plans across
 
 The main paths are host ingest -> ``plan_matrix(csr, "auto",
 device=...)`` -> ``spmv`` / ``cg_solve`` (one right-hand side) and ->
-``spmm`` / ``cg_solve_multi`` (X and B of shape (n, L)).
+``spmm`` / ``cg_solve_multi`` (X and B of shape (n, L)); for a
+variable-coefficient band also ``plan_dia_bf16`` -> ``cg_solve_bf16`` /
+``cg_solve_refined_f32`` / ``cg_solve_multi_refined_f32``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from tpusparse_torch.formats.coo import CooMatrix
 from tpusparse_torch.formats.csr import CsrMatrix
 from tpusparse_torch.io.market import read_market
 from tpusparse_torch.ops.spmv import (
     SpmvStrategy,
+    plan_dia_bf16,
     plan_kind,
     plan_matrix,
     plan_semantics,
@@ -36,14 +40,27 @@ from tpusparse_torch.ops.spmv import (
     spmv,
 )
 from tpusparse_torch.solvers.cg import CgResult, cg_solve, cg_solve_multi
+from tpusparse_torch.solvers.refine import (
+    RefineResult,
+    ReplCgResult,
+    cg_solve_bf16,
+    cg_solve_multi_refined_f32,
+    cg_solve_refined_f32,
+)
 
 __all__ = [
     "CgResult",
     "CooMatrix",
     "CsrMatrix",
+    "RefineResult",
+    "ReplCgResult",
     "SpmvStrategy",
     "cg_solve",
+    "cg_solve_bf16",
     "cg_solve_multi",
+    "cg_solve_multi_refined_f32",
+    "cg_solve_refined_f32",
+    "plan_dia_bf16",
     "plan_kind",
     "plan_matrix",
     "plan_semantics",

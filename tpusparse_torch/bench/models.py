@@ -3,6 +3,8 @@
   * SpMV GFLOP/s   = 2 * nnz * L / t
   * effective GB/s = (nnz * (2 sV + sO) + rows * L * (sO + sV)) / t
   * masked DIA     = (1 + 2L) * rows * 4 B (mask word, x, y)
+  * value-plane DIA = K * rows * plane_bytes + L * (rows + cols) * 4 B
+                     (planes once, X read and Y written once)
   * CSR SpMM       = nnz * (sV + sO) + (rows + 1) * sO
                      + (cols + rows) * L * sV (payload and offsets once,
                      X and Y once per lane)
@@ -30,6 +32,14 @@ def spmv_bytes(nnz: int, rows: int, L: int = 1, value_bytes: int = 8,
 def dia_masked_bytes(rows: int, L: int = 1, value_bytes: int = 4) -> float:
     """Masked DIA: one 4 B mask word per row, x and y streamed once."""
     return (1 + 2 * L) * rows * value_bytes
+
+
+def dia_planes_bytes(rows: int, cols: int, K: int, L: int = 1,
+                     plane_bytes: int = 4) -> float:
+    """Value-plane DIA: K planes of ``plane_bytes`` per row read once
+    for all L lanes, X (L, cols) read once and Y (L, rows) written once
+    in float32."""
+    return K * rows * plane_bytes + L * (rows + cols) * 4
 
 
 def spmm_bytes(nnz: int, rows: int, cols: int, L: int = 1,

@@ -1,10 +1,13 @@
-"""DIA (diagonal) partition of a CSR matrix (host, numpy).
+"""DIA (diagonal) partition of a CSR matrix, and its value planes on a
+device.
 
 Port of ``tpusparse/formats/dia.py``. ``select_diagonals`` picks the
 diagonals ``off = col - row`` dense enough to stream, ``partition_dia``
 splits a CSR into those diagonals (``DiaHost``) and a CSR remainder,
 and ``plane_constants`` detects constant-coefficient diagonals, which
 compress to one bit per row (``kernels/dia_stream.mask_words``).
+``to_device_dia`` ships the K value planes (``DiaDevice``), float32 or
+bf16, for the value-plane kernel K5.
 
 Layout: ``data[k, i] = A[i, i + offsets[k]]``, zero where out of range.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix
 
@@ -106,3 +110,35 @@ def plane_constants(data: np.ndarray):
             vals[k] = nz[0]
             ok[k] = bool((nz == nz[0]).all())
     return vals, ok
+
+
+@dataclasses.dataclass
+class DiaDevice:
+    """Value-plane DIA operand on a device: ``data`` (K, num_rows),
+    contiguous, float32 or bf16, ``data[k, i] = A[i, i + offsets[k]]``
+    and zero out of range; ``offsets`` a static tuple of K ints.
+
+    The counterpart of the JAX ``DiaDevice`` and of the value-plane form
+    of the JAX ``DiaStreamDevice``; the TPU blocking of the latter
+    ((nb, K, R, 128) planes, edge-halo slabs, a padded state width) has
+    no counterpart here."""
+
+    num_rows: int
+    num_cols: int
+    offsets: tuple
+    data: torch.Tensor
+
+
+def to_device_dia(dia_host: DiaHost, device,
+                  plane_dtype=torch.float32) -> DiaDevice:
+    """Ship a host DIA plan as value planes, even for a
+    constant-coefficient operator (the JAX ``masked=False``). bf16
+    planes round on the host as the JAX package's ``prepare_stream``
+    does: to float32 first, then to bf16 with round-to-nearest-even."""
+    if plane_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"planes are float32 or bf16, got {plane_dtype}")
+    planes = torch.from_numpy(
+        np.ascontiguousarray(dia_host.data, dtype=np.float32))
+    return DiaDevice(dia_host.num_rows, dia_host.num_cols,
+                     tuple(int(o) for o in dia_host.offsets),
+                     planes.to(plane_dtype).to(device).contiguous())

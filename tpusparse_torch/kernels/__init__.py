@@ -6,7 +6,10 @@ version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.
 
   dia_stream   K1, masked constant-coefficient DIA (replaces
-               tpusparse/kernels/dia_stream.py::_spmm_dia_stream_edge_mask)
+               tpusparse/kernels/dia_stream.py::_spmm_dia_stream_edge_mask),
+               and K5, value-plane DIA with float32 or bf16 planes
+               (replaces ::_spmm_dia_stream_edge and
+               ::_spmm_dia_stream_edge_mxu; its count is PLANES_LAUNCHES)
   merge_spmv   K2, merge-path CSR SpMV (replaces
                tpusparse/kernels/merge_spmv.py::_spmv_tiles)
   spmm_merge   K3, merge-path CSR SpMM (replaces

@@ -35,6 +35,9 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     # mask, xt, yt, n, L, K, offsets (host int*), vals (host float*), stream
     "tps_dia_masked": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
+    # planes, plane_bf16, xt, yt, num_rows, num_cols, L, K, offsets (host
+    # long long*), stream
+    "tps_dia_planes": (_P, _I32, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
     # row_offsets, col_indices, values, x, y, tile_coords, carry_rows,
     # carry_vals, num_rows, nnz, num_tiles, stream
     "tps_merge_spmv": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,

@@ -1,16 +1,22 @@
-"""Masked DIA stream — kernel K1 and the operand it runs on.
+"""DIA stream — kernels K1 (masked) and K5 (value planes).
 
-Port of the masked form of ``tpusparse/kernels/dia_stream.py``. A
-constant-coefficient diagonal operator (every diagonal holds one value
-wherever it is populated, ``formats.dia.plane_constants``) compresses
-its K value planes to one bit-mask word per row (bit k = plane k
-populated) plus K scalars, and y = A x reads 4 B of operand per row.
+Port of ``tpusparse/kernels/dia_stream.py``. A constant-coefficient
+diagonal operator (every diagonal holds one value wherever it is
+populated, ``formats.dia.plane_constants``) compresses its K value
+planes to one bit-mask word per row (bit k = plane k populated) plus K
+scalars, and y = A x reads 4 B of operand per row. Any other diagonal
+operator keeps its K value planes (``formats.dia.DiaDevice``), float32
+or bf16.
 
 K1 (``csrc/dia_masked.cu``) replaces the Pallas kernel
-``tpusparse/kernels/dia_stream.py::_spmm_dia_stream_edge_mask``. The
-TPU layout's blocking ((nb, R, 128) mask blocks, edge-halo x slabs,
-padded transposed state) has no counterpart: the mask is flat (n,)
-words and x is (L, n), the JAX package's transposed layout, unpadded.
+``tpusparse/kernels/dia_stream.py::_spmm_dia_stream_edge_mask``; K5
+(``csrc/dia_planes.cu``) replaces ``_spmm_dia_stream_edge`` and its
+MXU-rotation variant ``_spmm_dia_stream_edge_mxu``, which compute the
+same y. The TPU layout's blocking ((nb, R, 128) blocks, edge-halo x
+slabs, padded transposed state) has no counterpart: the mask is flat
+(n,) words, the planes (K, n), and x is (L, num_cols), the JAX
+package's transposed layout, unpadded. ``fits_stream``,
+``choose_block_rows`` and the other block-geometry helpers go with it.
 """
 
 from __future__ import annotations
@@ -21,14 +27,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpusparse_torch.formats.dia import plane_constants
+from tpusparse_torch.formats.dia import DiaDevice, plane_constants
 from tpusparse_torch.kernels import _build
 
 # Masked DIA packs one validity bit per plane into a 32-bit word per row.
 MASK_MAX_PLANES = 32
+# K5 takes its offsets by value in kernel parameters (formats.dia.MAX_DIAGS).
+PLANES_MAX = 64
 
 # K1 launches since the count was last reset (plain runs not counted).
 LAUNCHES = 0
+# K5 launches, counted apart from K1's.
+PLANES_LAUNCHES = 0
 
 
 def mask_words(dia_host) -> np.ndarray:
@@ -165,6 +175,76 @@ def spmm_dia_stream_t(D: DiaStreamDevice, XT: torch.Tensor) -> torch.Tensor:
     if XT.device.type == "cpu":
         return spmm_dia_masked_plain(D, XT)
     raise ValueError(f"no K1 path for device {XT.device}")
+
+
+def spmm_dia_planes_plain(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: (L, num_cols) -> (L, num_rows), the
+    same products and sums in the same order (offset order, planes
+    upcast to float32, columns outside [0, num_cols) read 0)."""
+    L = XT.shape[0]
+    n = D.num_rows
+    lo = max(0, -min(D.offsets, default=0))
+    hi = max(0, max(D.offsets, default=0) + n - D.num_cols)
+    xp = torch.zeros((L, lo + D.num_cols + hi), dtype=XT.dtype,
+                     device=XT.device)
+    xp[:, lo:lo + D.num_cols] = XT
+    acc = torch.zeros((L, n), dtype=XT.dtype, device=XT.device)
+    for k, off in enumerate(D.offsets):
+        acc = acc + D.data[k].to(XT.dtype) * xp[:, lo + off:lo + off + n]
+    return acc
+
+
+def _check_planes(D: DiaDevice, XT: torch.Tensor) -> None:
+    K = len(D.offsets)
+    if XT.dim() != 2 or XT.shape[1] != D.num_cols:
+        raise ValueError(
+            f"XT must be (L, {D.num_cols}), got {tuple(XT.shape)}")
+    if XT.dtype != torch.float32:
+        raise TypeError(f"K5 takes float32 XT, got {XT.dtype}")
+    if D.data.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K5 planes are float32 or bf16, got {D.data.dtype}")
+    if D.data.shape != (K, D.num_rows):
+        raise ValueError(f"planes must be ({K}, {D.num_rows}), got "
+                         f"{tuple(D.data.shape)}")
+    if K > PLANES_MAX:
+        raise ValueError(f"{K} planes exceed K5's {PLANES_MAX}")
+    if not (XT.is_contiguous() and D.data.is_contiguous()):
+        raise ValueError("K5 needs contiguous XT and planes")
+    if XT.device != D.data.device:
+        raise ValueError(
+            f"XT on {XT.device}, operand on {D.data.device}: same device "
+            "needed")
+
+
+def _launch_planes(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
+    global PLANES_LAUNCHES
+    L, K, n = XT.shape[0], len(D.offsets), D.num_rows
+    if n == 0 or L == 0 or K == 0:
+        return torch.zeros((L, n), dtype=torch.float32, device=XT.device)
+    Y = torch.empty((L, n), dtype=torch.float32, device=XT.device)
+    offs = (ctypes.c_longlong * K)(*D.offsets)
+    lib = _build.library()
+    with torch.cuda.device(XT.device):
+        stream = torch.cuda.current_stream(XT.device).cuda_stream
+        rc = lib.tps_dia_planes(D.data.data_ptr(),
+                                int(D.data.dtype == torch.bfloat16),
+                                XT.data_ptr(), Y.data_ptr(), n, D.num_cols,
+                                L, K, ctypes.addressof(offs), stream)
+    _build.check(rc, "tps_dia_planes")
+    PLANES_LAUNCHES += 1
+    return Y
+
+
+def spmm_dia_planes_t(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
+    """Transposed-layout product on value planes: XT (L, num_cols)
+    float32 -> A @ X as (L, num_rows). K5 on a CUDA tensor, the plain
+    version on a CPU tensor; any other device raises."""
+    _check_planes(D, XT)
+    if XT.device.type == "cuda":
+        return _launch_planes(D, XT)
+    if XT.device.type == "cpu":
+        return spmm_dia_planes_plain(D, XT)
+    raise ValueError(f"no K5 path for device {XT.device}")
 
 
 def spmv_dia_stream(D: DiaStreamDevice, x, alpha=1.0, beta=0.0, y=None):

@@ -1,8 +1,9 @@
 """Hybrid DIA + remainder plan (port of ``tpusparse/ops/hybrid.py``).
 
 ``A = A_dia + A_rest`` elementwise, so ``y = A_dia x + A_rest x``: the
-dense diagonals run on the masked DIA kernel (K1), the scattered
-remainder on the merge plan (K2 for SpMV, K3 for SpMM).
+dense diagonals run on the masked DIA kernel (K1) or, where they are not
+square and constant-coefficient, on the value-plane kernel (K5); the
+scattered remainder on the merge plan (K2 for SpMV, K3 for SpMM).
 """
 
 from __future__ import annotations
@@ -10,19 +11,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from tpusparse_torch.kernels.dia_stream import (
-    DiaStreamDevice,
-    spmm_dia_stream,
-    spmv_dia_stream,
-)
-
 
 @dataclasses.dataclass
 class HybridPlan:
     """DIA part + a plan for the remainder (None when the diagonals
     cover the whole matrix — then this is pure DIA)."""
 
-    dia: DiaStreamDevice
+    dia: Any             # DiaStreamDevice (K1) or formats.dia.DiaDevice (K5)
     rest: Any            # MergeDevice or None
     nnz: int             # real nonzeros (for flop accounting)
 
@@ -30,7 +25,7 @@ class HybridPlan:
 def spmv_hybrid(H: HybridPlan, x, alpha=1.0, beta=0.0, y=None):
     from tpusparse_torch.ops.spmv import spmv
 
-    y_new = spmv_dia_stream(H.dia, x)
+    y_new = spmv(H.dia, x)
     if H.rest is not None:
         y_new = spmv(H.rest, x, beta=1.0, y=y_new)
     if beta == 0.0 or y is None:
@@ -39,11 +34,11 @@ def spmv_hybrid(H: HybridPlan, x, alpha=1.0, beta=0.0, y=None):
 
 
 def spmm_hybrid(H: HybridPlan, X, alpha=1.0, beta=0.0, Y=None):
-    """The same split for X (num_cols, L); K1 runs on X.T, so the DIA
-    part transposes at its boundary."""
+    """The same split for X (num_cols, L); K1 and K5 run on X.T, so the
+    DIA part transposes at its boundary."""
     from tpusparse_torch.ops.spmv import spmm
 
-    Y_new = spmm_dia_stream(H.dia, X)
+    Y_new = spmm(H.dia, X)
     if H.rest is not None:
         Y_new = spmm(H.rest, X, beta=1.0, Y=Y_new)
     if beta == 0.0 or Y is None:

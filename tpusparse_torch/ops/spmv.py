@@ -6,11 +6,13 @@
 (num_cols, L)) dispatch on the operand type. The strategies the port
 runs, at any L >= 1:
 
-  AUTO       — a square constant-coefficient diagonal operator whose
-               dense diagonals carry at least ``DIA_MIN_COVERAGE`` of
-               the nonzeros goes to the masked DIA kernel (K1), any
-               scattered remainder to the merge plan; everything else
-               goes to the merge plan, non-constant bands included.
+  AUTO       — a matrix whose dense diagonals carry at least
+               ``DIA_MIN_COVERAGE`` of the nonzeros peels them: a square
+               constant-coefficient band of at most 32 diagonals goes to
+               the masked DIA kernel (K1), any other band (rectangular,
+               variable coefficients, up to 64 diagonals) to the
+               value-plane kernel (K5); a scattered remainder goes to the
+               merge plan. Everything else goes to the merge plan.
   DIA        — the same peel without the coverage gate.
   MERGE      — the merge plan on the whole matrix: K2 for SpMV, K3 for
                SpMM.
@@ -18,26 +20,36 @@ runs, at any L >= 1:
                SpMV and SpMM; never an AUTO choice.
   REFERENCE  — the plain-torch golden product on ``csr.to(device)``.
 
+``plan_dia_bf16`` builds the opt-in bf16-plane operator of the
+mixed-precision solvers (``solvers/refine.py``); AUTO never does.
+
 The plan may differ from the JAX package's plan; the numbers may not.
 The JAX planner's ELL-occupancy gate between its merge and gather-job
 kernels measures TPU lane packing and is not ported: a gate between K3
-and K4 waits for measurements on the card. The other strategies,
-float64 and reordering raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+and K4 waits for measurements on the card. Nor are its gates between
+the XLA DIA op and the stream kernels (``DIA_STREAM_MIN_BYTES``,
+``DIA_STREAM_MAX_L``, ``stream_ok`` and the ``fits_stream`` block limit
+on |offset|): they follow XLA's fusion capacity and the TPU's VMEM
+blocks, and one Hopper kernel (K5) covers both regimes. The other
+strategies, float64 and reordering raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import enum
+import warnings
 
 import numpy as np
 import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix
 from tpusparse_torch.formats.dia import (
+    DiaDevice,
     diagonal_profile,
     partition_dia,
     select_diagonals,
+    to_device_dia,
 )
 from tpusparse_torch.kernels.dia_stream import (
     DiaStreamDevice,
@@ -58,6 +70,7 @@ from tpusparse_torch.kernels.merge_spmv import (
     to_device_merge,
 )
 from tpusparse_torch.kernels.spmm_merge import spmm_merge
+from tpusparse_torch.ops.dia import spmm_dia, spmv_dia
 from tpusparse_torch.ops.hybrid import HybridPlan, spmm_hybrid, spmv_hybrid
 from tpusparse_torch.ops.reference import spmm_reference, spmv_reference
 
@@ -135,11 +148,10 @@ def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
 
 
 def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device):
-    """Masked DIA / hybrid plan, or None when the matrix has no
-    diagonal structure worth peeling (explicit 'dia' skips the coverage
-    gate). A diagonal operator that is not square and
-    constant-coefficient needs the value-plane kernel B2: AUTO sends it
-    to K2 whole, explicit 'dia' raises."""
+    """DIA / hybrid plan, or None when the matrix has no diagonal
+    structure worth peeling (explicit 'dia' skips the coverage gate).
+    A square constant-coefficient band is masked (K1); any other band
+    keeps its value planes (K5)."""
     if csr.nnz == 0:
         return None
     offsets = select_diagonals(csr)
@@ -151,23 +163,57 @@ def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device):
             and covered < DIA_MIN_COVERAGE * csr.nnz):
         return None
     dia_host, rest = partition_dia(csr, offsets)
-    if csr.num_rows != csr.num_cols or not _maskable(dia_host)[1]:
-        if strategy == SpmvStrategy.DIA:
-            raise NotImplementedError(
-                "strategy 'dia' on a non-square or non-constant band: the "
-                "value-plane DIA kernel B2 and ops/dia.py are ROADMAP A3b")
-        return None
-    dev = to_device_dia_stream(dia_host, device)
+    if csr.num_rows == csr.num_cols and _maskable(dia_host)[1]:
+        dev = to_device_dia_stream(dia_host, device)
+    else:
+        dev = to_device_dia(dia_host, device)
     rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
     return HybridPlan(dev, rest_plan, csr.nnz)
+
+
+def plan_dia_bf16(csr: CsrMatrix, L: int = 1, device="cuda") -> HybridPlan:
+    """Opt-in bf16-plane plan: the inner operator of the mixed-precision
+    solvers (``solvers/refine.py``), never an AUTO choice. The planes
+    are stored bf16, which perturbs the operator by about 4e-3 relative
+    (bf16 eps = 2^-8); K5 upcasts them in-register and computes in
+    float32. The scattered remainder, if any, stays an exact float32
+    merge plan. ``L`` (>= 1) does not change the plan.
+
+    Raises ValueError for a matrix that is not square or has no dense
+    diagonals. The JAX package's refusal of a band wider than its stream
+    block (``fits_stream``) has no counterpart: K5 has no limit on
+    |offset|."""
+    if int(L) < 1:
+        raise ValueError(f"L={L}: the number of right-hand sides is >= 1")
+    if csr.num_rows != csr.num_cols:
+        raise ValueError("plan_dia_bf16: square matrices only")
+    offsets = select_diagonals(csr)
+    if offsets.size == 0:
+        raise ValueError(
+            "plan_dia_bf16: no dense diagonals selected — the bf16-plane "
+            "plan needs a diagonal-structured operator")
+    dia_host, rest = partition_dia(csr, offsets)
+    if _maskable(dia_host)[1]:
+        warnings.warn(
+            "plan_dia_bf16: the operator is constant-coefficient — the "
+            "exact masked plan (strategy='dia') reads 4 B/row and beats "
+            "bf16 value planes; proceeding as requested", stacklevel=2)
+    dev = to_device_dia(dia_host, device, plane_dtype=torch.bfloat16)
+    rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
+    return HybridPlan(dev, rest_plan, csr.nnz)
+
+
+def _bf16_planes(A) -> bool:
+    return isinstance(A, DiaDevice) and A.data.dtype == torch.bfloat16
 
 
 def plan_kind(A) -> str:
     """Short name of a plan's kernel family (the JAX package's labels)."""
     if isinstance(A, HybridPlan):
-        return "dia" if A.rest is None else "hybrid_dia"
-    if isinstance(A, DiaStreamDevice):
-        return "dia"
+        tag = "dia_bf16" if _bf16_planes(A.dia) else "dia"
+        return tag if A.rest is None else "hybrid_" + tag
+    if isinstance(A, (DiaStreamDevice, DiaDevice)):
+        return "dia_bf16" if _bf16_planes(A) else "dia"
     if isinstance(A, MergeDevice):
         return "merge"
     if isinstance(A, RowSplitDevice):
@@ -178,10 +224,12 @@ def plan_kind(A) -> str:
 
 
 def plan_semantics(A) -> str:
-    """Numeric semantics a plan's kernels deliver: every port plan is
-    ``'f32'`` until float64 (ROADMAP A9)."""
+    """Numeric semantics a plan's kernels deliver: ``'bf16-plane(~4e-3)'``
+    for bf16 value planes (a hybrid takes it from its DIA part, as in
+    the JAX package), else ``'f32'`` until float64 (ROADMAP A9)."""
     plan_kind(A)
-    return "f32"
+    dia = A.dia if isinstance(A, HybridPlan) else A
+    return "bf16-plane(~4e-3)" if _bf16_planes(dia) else "f32"
 
 
 def spmv(A, x, alpha=1.0, beta=0.0, y=None):
@@ -190,6 +238,8 @@ def spmv(A, x, alpha=1.0, beta=0.0, y=None):
         return spmv_hybrid(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, DiaStreamDevice):
         return spmv_dia_stream(A, x, alpha=alpha, beta=beta, y=y)
+    if isinstance(A, DiaDevice):
+        return spmv_dia(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, MergeDevice):
         return spmv_merge(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, RowSplitDevice):
@@ -210,6 +260,8 @@ def spmm(A, X, alpha=1.0, beta=0.0, Y=None):
         return spmm_hybrid(A, X, alpha=alpha, beta=beta, Y=Y)
     if isinstance(A, DiaStreamDevice):
         return spmm_dia_stream(A, X, alpha=alpha, beta=beta, Y=Y)
+    if isinstance(A, DiaDevice):
+        return spmm_dia(A, X, alpha=alpha, beta=beta, Y=Y)
     if isinstance(A, MergeDevice):
         return spmm_merge(A, X, alpha=alpha, beta=beta, Y=Y)
     if isinstance(A, RowSplitDevice):

@@ -24,10 +24,11 @@ own CG, with ``_cg_solve_multi_impl``'s semantics:
     converged lane freezes;
   * the history holds the largest ``sqrt(r.r) / ||b||`` over the lanes.
 
-A plan that is all masked DIA (K1, no remainder) keeps the whole state
-in (L, n), K1's own layout, with no transposes per iteration
-(``_cg_solve_multi_transposed``); every other plan keeps (n, L) and
-calls ``spmm``.
+A plan that is all diagonal runs (no remainder), masked (K1) or value
+planes of either type (K5), keeps the whole state in (L, n), the
+kernels' own layout, with no transposes per iteration (the JAX
+package's ``_pure_dia_of`` / ``_dia_t_callable``); every other plan
+keeps (n, L) and calls ``spmm``.
 
 The loops are eager: every iteration runs the plan's kernel and BLAS-1
 on the device and makes one host sync, to read the convergence
@@ -42,7 +43,12 @@ import dataclasses
 
 import torch
 
-from tpusparse_torch.kernels.dia_stream import spmm_dia_stream_t
+from tpusparse_torch.formats.dia import DiaDevice
+from tpusparse_torch.kernels.dia_stream import (
+    DiaStreamDevice,
+    spmm_dia_planes_t,
+    spmm_dia_stream_t,
+)
 from tpusparse_torch.ops.blas import (
     axpy_multiple,
     axpy_single,
@@ -109,16 +115,31 @@ def cg_solve_multi(A, B: torch.Tensor, max_iters: int = 10000,
     dtype."""
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
-    if isinstance(A, HybridPlan) and A.rest is None:
+    mm_t = _dia_t_callable(A)
+    if mm_t is not None:
         XT, i, converged, rel, hist = _cg_multi_loop(
-            lambda P: spmm_dia_stream_t(A.dia, P), B.T.contiguous(), 0,
-            max_iters, tolerance, record_history)
+            mm_t, B.T.contiguous(), 0, max_iters, tolerance,
+            record_history)
         return CgResult(x=XT.T.contiguous(), iterations=i, converged=converged,
                         residual=rel, history=hist)
     X, i, converged, rel, hist = _cg_multi_loop(
         lambda P: spmm(A, P), B, 1, max_iters, tolerance, record_history)
     return CgResult(x=X, iterations=i, converged=converged, residual=rel,
                     history=hist)
+
+
+def _dia_t_callable(A):
+    """The (L, num_cols) -> (L, num_rows) kernel call of a plan that is
+    all diagonal runs (a bare DIA operand, or a HybridPlan with no
+    remainder): K1 on a masked operand, K5 on value planes; None for
+    any other plan."""
+    if isinstance(A, HybridPlan) and A.rest is None:
+        A = A.dia
+    if isinstance(A, DiaStreamDevice):
+        return lambda P: spmm_dia_stream_t(A, P)
+    if isinstance(A, DiaDevice):
+        return lambda P: spmm_dia_planes_t(A, P)
+    return None
 
 
 def _cg_multi_loop(matmat, B, lane_dim, max_iters, tolerance,

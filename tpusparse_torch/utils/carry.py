@@ -8,6 +8,13 @@ port's plan, so that both packages can run on the same operand:
     ``mask_b`` ((nb, R, 128) int32 blocks; the words past ``num_rows``
     are the zero pad and are dropped), ``offsets``, ``vals`` and
     ``shape``;
+  * ``"dia"`` — a value-plane ``DiaDevice`` (K5) from a JAX
+    ``DiaDevice``: ``data`` (K, num_rows), ``offsets`` and ``shape``;
+  * ``"dia_planes"`` — a ``DiaDevice`` from the value-plane form of a
+    JAX ``DiaStreamDevice``: ``data_b`` ((nb, K, R, 128), float32 or
+    bf16), unblocked to (K, num_rows) as the JAX package does
+    (``ops/dia.py:172-174``; the entries past ``num_rows`` are the zero
+    pad and are dropped), ``offsets`` and ``shape``;
   * ``"csr"`` — a merge plan from ``row_offsets``, ``col_indices``,
     ``values`` and ``shape``;
   * ``"row_split"`` — a row-split plan (K4) from the same CSR arrays;
@@ -24,8 +31,10 @@ port's plan, so that both packages can run on the same operand:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix
+from tpusparse_torch.formats.dia import DiaDevice
 from tpusparse_torch.kernels.dia_stream import from_mask_words
 from tpusparse_torch.kernels.ell_spmm import to_device_row_split
 from tpusparse_torch.kernels.merge_spmv import to_device_merge
@@ -41,6 +50,8 @@ def plan_from_arrays(kind: str, arrays: dict, device):
             raise ValueError("mask words past num_rows must be the zero pad")
         return from_mask_words(n_rows, n_cols, arrays["offsets"],
                                arrays["vals"], words[:n_rows], device)
+    if kind in ("dia", "dia_planes"):
+        return _dia_of_planes(kind, arrays, n_rows, n_cols, device)
     if kind in ("csr", "row_split"):
         csr = CsrMatrix(n_rows, n_cols, np.asarray(arrays["row_offsets"]),
                         np.asarray(arrays["col_indices"]),
@@ -52,7 +63,39 @@ def plan_from_arrays(kind: str, arrays: dict, device):
         return to_device_row_split(_csr_of_ell(arrays, n_rows, n_cols),
                                    device)
     raise ValueError(
-        f"unknown plan kind {kind!r} (dia_masked, csr, row_split, ell)")
+        f"unknown plan kind {kind!r} (dia_masked, dia, dia_planes, csr, "
+        "row_split, ell)")
+
+
+def _dia_of_planes(kind, arrays, n_rows, n_cols, device) -> DiaDevice:
+    """A ``DiaDevice`` from (K, n) planes or (nb, K, R, 128) blocks;
+    float32 planes stay float32 and bf16 planes bf16, bit for bit."""
+    offsets = tuple(int(o) for o in arrays["offsets"])
+    if kind == "dia":
+        data = _planes_tensor(arrays["data"])
+    else:
+        blocks = _planes_tensor(arrays["data_b"])
+        planes = blocks.permute(1, 0, 2, 3).reshape(len(offsets), -1)
+        if torch.any(planes[:, n_rows:] != 0):
+            raise ValueError("plane entries past num_rows must be the zero "
+                             "pad")
+        data = planes[:, :n_rows]
+    if data.shape != (len(offsets), n_rows):
+        raise ValueError(f"planes of shape {tuple(data.shape)} for "
+                         f"{len(offsets)} offsets and {n_rows} rows")
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"planes are float32 or bf16, got {data.dtype}")
+    return DiaDevice(n_rows, n_cols, offsets, data.contiguous().to(device))
+
+
+def _planes_tensor(a) -> torch.Tensor:
+    """A numpy plane array as a tensor; numpy holds bf16 as an
+    extension type (``bfloat16``) that torch does not take, so its bits
+    travel as int16."""
+    a = np.array(a, order="C")       # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _csr_of_ell(arrays: dict, n_rows: int, n_cols: int) -> CsrMatrix:
