@@ -13,7 +13,12 @@ and exits non-zero on any failure:
     -> ``spmv`` / ``cg_solve`` on float32 value planes, and
     ``plan_dia_bf16`` -> ``cg_solve_bf16`` / ``cg_solve_refined_f32`` on
     bf16 planes (K5 value-plane DIA);
-  * the same operators at L = 16: ``spmm`` / ``cg_solve_multi`` (K5).
+  * the same operators at L = 16: ``spmm`` / ``cg_solve_multi`` (K5);
+  * float64, one right-hand side: ``plan_matrix(csr, dtype=np.float64)``
+    -> ``spmv`` / ``cg_solve`` / ``cg_solve_refined`` (K1d, K2d and K5d,
+    the float64 twins of K1, K2 and K5, with float32 inner solves);
+  * float64 at L = 16: ``spmm`` / ``cg_solve_multi_refined`` (K1d, K3d,
+    K4d).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -31,7 +36,11 @@ Phases, each printed on its own lines:
       float32 and bf16 planes at L = 1, 4 and 16 on var-7-48, var-27-32,
       Trefethen_200, a rectangular band and the DIA part of a hybrid,
       bitwise equal to its plain version and within 2Ku|A||x| of
-      float64;
+      float64; the float64 twins at L = 1, 3 and 16 (u = 2^-53): K1d on
+      lap3d-48 and K5d on K5's fixtures bitwise equal to their plain
+      versions, K2d, K3d and K4d on K2's fixtures within
+      2(nnz_i + 2)u|A||x| of theirs and bitwise repeatable, all five
+      within that bound of an independent float64 product;
   [3] the single-RHS slice at the bench fixture lap3d-48: AUTO must give
       a masked DIA plan; SpMV times (CUDA events per call as made, and
       device time from CUDA-graph replay) beside the plain versions', the
@@ -61,10 +70,23 @@ Phases, each printed on its own lines:
       float64 true residual < 1e-4 on the exact operator;
   [9] the same at L = 16 on var-7-160: ``spmm`` (K5 alone on (L, n)
       and through ``spmm``) and ``cg_solve_multi`` with (L, n) state;
+ [10] float64, one right-hand side: lap3d-160 (AUTO must plan K1d:
+      ``spmv`` timed beside the plain version, ``torch.sparse`` in
+      float64 and the float64 bound; ``cg_solve`` to 1e-10;
+      ``cg_solve_refined`` with the K1 float32 plan inside to 1e-12),
+      var-7-160 (AUTO must plan K5d: ``spmv``, ``cg_solve_refined``
+      with K5 inside), rmat-18-ef16 (``spmv`` on ``'merge'``: K2d) and
+      rmat_spd-17-ef4 (AUTO must plan merge: ``cg_solve`` on K2d,
+      ``cg_solve_refined`` with K2 inside); every refinement must reach
+      a float64 true residual < 1e-11;
+ [11] float64 at L = 16: ``spmm`` on lap3d-160 AUTO (K1d on (L, n)),
+      on rmat-18-ef16 ``'merge'`` (K3d) and ``'row_split'`` (K4d);
+      ``cg_solve_multi_refined`` on lap3d-160 to 1e-12 on every lane;
   [5] launch counts of each main path, counted from 0 just before it
-      ([3]-[4], [6]-[7], [8] and [9]) and read just after: K1 and K2
-      must have run on the first, K1, K3 and K4 on the second, K5 on
-      the third and the fourth.
+      ([3]-[4], [6]-[7], [8], [9], [10] and [11]) and read just after:
+      K1 and K2 must have run on the first, K1, K3 and K4 on the
+      second, K5 on the third and the fourth, K1d, K2d and K5d on the
+      fifth, K1d, K3d and K4d on the sixth.
 
 The last two lines are a JSON object of the kernels and the result
 line ``{"ok": true, "device": {...}}``. The port imports no JAX.
@@ -83,10 +105,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 U = 2.0 ** -24           # float32 unit roundoff
+U64 = 2.0 ** -53         # float64 unit roundoff
 CG_TOL = 1e-5
 TRUE_RESIDUAL_MAX = 1e-4
+CG64_TOL = 1e-10         # float64 CG
+CG64_TRUE_MAX = 1e-9
+REFINE_TOL = 1e-12       # float64 refinements
+REFINE_TRUE_MAX = 1e-11
 L_MULTI = 16             # right-hand sides of the multi-RHS phases
 SPMM_LS = (1, 3, 16, 32)
+F64_LS = (1, 3, 16)
 
 
 def check(ok, what: str) -> None:
@@ -97,6 +125,11 @@ def check(ok, what: str) -> None:
 def rand(seed: int, shape) -> torch.Tensor:
     x = np.random.default_rng(seed).standard_normal(shape)
     return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+def rand64(seed: int, shape) -> torch.Tensor:
+    return torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(shape)).cuda()
 
 
 def k1_vs_plain(name, D, L, seed):
@@ -267,6 +300,106 @@ def spmm_vs_plain(kernel, name, csr, seed):
     return worst
 
 
+def dia_as_csr(D):
+    """The float64 CSR (row offsets, column indices, values) on the card
+    of a DIA operand, masked or value planes: the independent float64
+    product the DIA kernels are held to."""
+    from tpusparse_torch.kernels import dia_stream
+
+    n = D.num_rows
+    if isinstance(D, dia_stream.DiaStreamDevice):
+        zero = torch.zeros((), dtype=torch.float64, device=D.mask.device)
+        planes = torch.stack([
+            torch.where(((D.mask >> k) & 1) != 0, D.vals[k].double(), zero)
+            for k in range(len(D.offsets))])
+    else:
+        planes = D.data.double()
+    i = torch.arange(n, device=planes.device)
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(D.offsets):
+        ok = (i + off >= 0) & (i + off < D.num_cols)
+        rows.append(i[ok])
+        cols.append(i[ok] + off)
+        vals.append(planes[k][ok])
+    r, c, v = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    order = torch.argsort(r * D.num_cols + c)
+    ro = torch.zeros(n + 1, dtype=torch.int64, device=planes.device)
+    ro[1:] = torch.cumsum(torch.bincount(r, minlength=n), 0)
+    return ro, c[order], v[order]
+
+
+def kd_dia_vs_plain(kernel, name, D, L, seed):
+    """K1d or K5d against its plain version, bitwise, and against an
+    independent float64 product: |d|_i <= 2 (K + 2) u (|A||x|)_i."""
+    from tpusparse_torch.kernels import dia_stream
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    XT = rand64(seed, (L, D.num_cols))
+    if kernel == "K1d":
+        Y = dia_stream.spmm_dia_stream_t(D, XT)
+        Yp = dia_stream.spmm_dia_masked_plain(D, XT)
+    else:
+        Y = dia_stream.spmm_dia_planes_t(D, XT)
+        Yp = dia_stream.spmm_dia_planes_plain(D, XT)
+    ro, c, v = dia_as_csr(D)
+    X = XT.T.contiguous()
+    Y64 = csr_matmat(D.num_rows, ro, c, v, X).T
+    AX = csr_matmat(D.num_rows, ro, c, v.abs(), X.abs()).T
+    bound = 2 * (len(D.offsets) + 2) * U64 * AX
+    what = f"{kernel} {name} L={L}"
+    check(Y.dtype == torch.float64 and Y.shape == (L, D.num_rows)
+          and torch.isfinite(Y).all(), f"{what}: finite float64 Y")
+    check(torch.equal(Y, Yp), f"{what}: bitwise equal to plain")
+    check(((Y - Y64).abs() <= bound).all(),
+          f"{what}: within 2(K+2)u|A||x| of a float64 CSR product")
+    print(f"[2] {what}: bitwise equal to plain, max|{kernel}-float64 CSR| "
+          f"{float((Y - Y64).abs().max()):.3e} (bound max "
+          f"{float(bound.max()):.3e})")
+    return float((Y - Yp).abs().max())
+
+
+def kd_csr_vs_plain(kernel, name, csr, seed):
+    """K2d (L = 1), K3d or K4d (L in F64_LS) against its plain version
+    and the ``torch.sparse`` float64 product: |d|_il <= 2 (nnz_i + 2) u
+    (|A||X|)_il; two runs bitwise equal. Returns max |kernel - plain|."""
+    from tpusparse_torch.kernels import ell_spmm, merge_spmv, spmm_merge
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    plan, matmat, plain = {
+        "K2d": (merge_spmv.to_device_merge,
+                lambda A, X: merge_spmv.merge_matvec(A, X[:, 0])[:, None],
+                lambda A, X: merge_spmv.spmv_merge_plain(A, X[:, 0])[:,
+                                                                     None]),
+        "K3d": (merge_spmv.to_device_merge, spmm_merge.merge_matmat,
+                spmm_merge.spmm_merge_plain),
+        "K4d": (ell_spmm.to_device_row_split, ell_spmm.row_split_matmat,
+                ell_spmm.spmm_row_split_plain)}[kernel]
+    A = plan(csr, "cuda", torch.float64)
+    lib = library_csr(A) if A.nnz else None
+    nnz_i = (A.row_offsets[1:] - A.row_offsets[:-1]).double()[:, None]
+    worst = 0.0
+    for L in ((1,) if kernel == "K2d" else F64_LS):
+        X = rand64(seed + L, (A.num_cols, L))
+        Y1, Y2, Yp = matmat(A, X), matmat(A, X), plain(A, X)
+        AX = csr_matmat(A.num_rows, A.row_offsets, A.col_indices,
+                        A.values.abs(), X.abs())
+        bound = 2 * (nnz_i + 2) * U64 * AX
+        Yl = lib @ X if lib is not None else torch.zeros_like(Y1)
+        what = f"{kernel} {name} L={L}"
+        check(Y1.dtype == torch.float64 and Y1.shape == (A.num_rows, L),
+              f"{what}: float64 Y of shape ({A.num_rows}, {L})")
+        check(torch.equal(Y1, Y2), f"{what}: two runs bitwise equal")
+        check(((Y1 - Yp).abs() <= bound).all(), f"{what}: bound vs plain")
+        check(((Y1 - Yl).abs() <= bound).all(),
+              f"{what}: bound vs torch.sparse float64")
+        if Y1.numel():
+            worst = max(worst, float((Y1 - Yp).abs().max()))
+    print(f"[2] {kernel} {name} {A.num_rows}x{A.num_cols} nnz {A.nnz}: "
+          f"max|{kernel}-plain| {worst:.3e}, within 2(nnz_i+2)u|A||x| of "
+          f"plain and of torch.sparse float64, bitwise repeat PASS")
+    return worst
+
+
 def library_csr(A):
     """The CSR arrays of a plan as a ``torch.sparse`` CSR tensor, for
     the library call timed beside the kernels (cuSPARSE)."""
@@ -288,13 +421,14 @@ def time_pair(kernel_fn, plain_fn):
             for k, v in out.items()}
 
 
-def report(phase, what, t, flops, nbytes):
+def report(phase, what, t, flops, nbytes, fp64=False):
     """Print one timing line: kernel and plain (per call, device), the
-    library call per call, and the bound; returns the bound."""
+    library call per call, and the bound (against the float64 peak with
+    ``fp64``); returns the bound."""
     from tpusparse_torch.bench.models import bound_ms, gflops
 
     (kev, kdev), (pev, pdev) = t["kernel"], t["plain"]
-    bms, by = bound_ms(flops, nbytes)
+    bms, by = bound_ms(flops, nbytes, fp64=fp64)
     print(f"[{phase}] {what}: kernel {kev:.4f} ms/call, device {kdev:.4f}"
           f" ms ({gflops(flops, kdev * 1e-3):.1f} GFLOP/s, "
           f"{nbytes / kdev * 1e-6:.1f} GB/s of {nbytes / 1e6:.1f} MB); "
@@ -456,10 +590,12 @@ def slice_var_spmv(tag, csr, seed):
     return A32, A16, times
 
 
-def run_solve(phase, tag, solve, csr, b):
+def run_solve(phase, tag, solve, csr, b, tol=CG_TOL,
+              true_max=TRUE_RESIDUAL_MAX):
     """Run ``solve()`` twice (the first solve pays one-time costs: module
     loads, allocator growth); checks and times the second against the
-    float64 CSR ``csr``. Returns (iterations, ms/iteration, float64 true
+    float64 CSR ``csr``: converged to ``tol``, float64 true residual
+    below ``true_max``. Returns (iterations, ms/iteration, float64 true
     residual); a refinement solve counts its inner iterations and has
     converged when its exact residual is below the tolerance."""
     walls = []
@@ -476,10 +612,10 @@ def run_solve(phase, tag, solve, csr, b):
     true_res = float(np.linalg.norm(b64 - A64 @ x64) / np.linalg.norm(b64))
     iters = getattr(res, "iterations", getattr(res, "inner_iterations", 0))
     residual = float(res.residual)
-    converged = getattr(res, "converged", residual < CG_TOL)
+    converged = getattr(res, "converged", residual < tol)
     check(converged, f"{tag}: converged")
     check(np.isfinite(x64).all(), f"{tag}: finite x")
-    check(true_res < TRUE_RESIDUAL_MAX, f"{tag}: true residual {true_res}")
+    check(true_res < true_max, f"{tag}: true residual {true_res}")
     per = ms / max(iters, 1)
     extra = "".join(f", {k} {getattr(res, k)}" for k in
                     ("replacements", "restarts", "refinements")
@@ -533,6 +669,149 @@ def run_cg_multi(tag, A, C, B, phase=7):
           f"{true_res.max():.3e}, {ms:.1f} ms ({per:.4f} ms/iteration; "
           f"first solve {first:.1f} ms)")
     return res.iterations, per, float(true_res.max())
+
+
+def slice_fp64_spmv(tag, csr, strategy, kernel, seed):
+    """[10] ``spmv`` on a float64 plan: the plan runs ``kernel`` (K1d,
+    K2d or K5d), y is within 2(nnz_i + 2)u|A||x| of the float64
+    ``reference`` plan's product, and the call is timed beside the plain
+    version, ``torch.sparse`` in float64 and the float64 bound. Returns
+    (plan, timings)."""
+    from tpusparse_torch import plan_matrix, plan_semantics, spmv
+    from tpusparse_torch.bench.models import (
+        dia_masked_bytes,
+        dia_planes_bytes,
+        spmm_bytes,
+        spmv_flops,
+    )
+    from tpusparse_torch.bench.timing import cuda_time_ms
+    from tpusparse_torch.formats.dia import DiaDevice
+    from tpusparse_torch.kernels import dia_stream, merge_spmv
+    from tpusparse_torch.ops.reference import csr_matvec
+
+    A = plan_matrix(csr, strategy, dtype=np.float64, device="cuda")
+    n = csr.num_rows
+    if kernel == "K1d":
+        ok = isinstance(A.dia, dia_stream.DiaStreamDevice) and A.rest is None
+        plain = dia_stream.spmm_dia_masked_plain
+        nbytes = dia_masked_bytes(n, 1, 8)
+    elif kernel == "K5d":
+        ok = isinstance(A.dia, DiaDevice) and A.rest is None
+        plain = dia_stream.spmm_dia_planes_plain
+        nbytes = dia_planes_bytes(n, csr.num_cols, len(A.dia.offsets), 1, 8,
+                                  8)
+    else:
+        ok = isinstance(A, merge_spmv.MergeDevice)
+        nbytes = spmm_bytes(csr.nnz, n, csr.num_cols, 1, 8)
+    check(ok and plan_semantics(A) == "ieee-f64",
+          f"{tag} {strategy} float64: plans {kernel}")
+    C = plan_matrix(csr, "reference", dtype=np.float64, device="cuda")
+    x = rand64(seed, csr.num_cols)
+    y = spmv(A, x)
+    args = (C.num_rows, C.row_offsets, C.col_indices)
+    y64 = spmv(C, x)
+    ax = csr_matvec(*args, C.values.abs(), x.abs())
+    nnz_i = (C.row_offsets[1:] - C.row_offsets[:-1]).double()
+    check(y.dtype == torch.float64 and y.shape == (n,)
+          and torch.isfinite(y).all(), f"{tag}: finite float64 y")
+    check(((y - y64).abs() <= 2 * (nnz_i + 2) * U64 * ax).all(),
+          f"{tag}: y within 2(nnz_i+2)u|A||x| of the reference plan")
+    XT = x.reshape(1, -1)
+    if kernel == "K2d":
+        t = time_pair(lambda: spmv(A, x),
+                      lambda: merge_spmv.spmv_merge_plain(A, x))
+    else:
+        t = time_pair(lambda: spmv(A, x), lambda: plain(A.dia, XT))
+    lib = library_csr(C)
+    t["library"] = cuda_time_ms(lambda: lib @ x)
+    t["bound"] = report(10, f"{tag} spmv float64 {strategy} ({kernel})", t,
+                        spmv_flops(csr.nnz), nbytes, fp64=True)
+    return A, t
+
+
+def slice_fp64_spmm(tag, C, plans, seed):
+    """[11] ``spmm`` at L_MULTI through each (label, plan, kernel) of
+    ``plans`` of one matrix, whose float64 CSR on the card is ``C``:
+    within 2(nnz_i + 2)u|A||X| of its float64 product, timed beside the
+    plain version, ``torch.sparse`` in float64 and the float64 bound (K1d
+    alone on (L, n) for a masked plan)."""
+    from tpusparse_torch import spmm
+    from tpusparse_torch.bench.models import (
+        dia_masked_bytes,
+        spmm_bytes,
+        spmv_flops,
+    )
+    from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
+    from tpusparse_torch.kernels import dia_stream, ell_spmm, spmm_merge
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    X = rand64(seed, (C.num_cols, L_MULTI))
+    args = (C.num_rows, C.row_offsets, C.col_indices)
+    Y64 = csr_matmat(*args, C.values, X)
+    AX = csr_matmat(*args, C.values.abs(), X.abs())
+    nnz_i = (C.row_offsets[1:] - C.row_offsets[:-1]).double()[:, None]
+    lib = library_csr(C)
+    lib_ms = cuda_time_ms(lambda: lib @ X)
+    fl = spmv_flops(C.nnz, L_MULTI)
+    out = {}
+    for label, P, kernel in plans:
+        Y = spmm(P, X)
+        check(Y.dtype == torch.float64 and Y.shape == (C.num_rows, L_MULTI)
+              and torch.isfinite(Y).all(), f"{tag} {label}: finite Y")
+        check(((Y - Y64).abs() <= 2 * (nnz_i + 2) * U64 * AX).all(),
+              f"{tag} {label}: Y within 2(nnz_i+2)u|A||X| of float64")
+        if kernel == "K1d":
+            XT = X.T.contiguous()
+            t = time_pair(lambda: dia_stream.spmm_dia_stream_t(P.dia, XT),
+                          lambda: dia_stream.spmm_dia_masked_plain(P.dia,
+                                                                   XT))
+            nbytes = dia_masked_bytes(C.num_rows, L_MULTI, 8)
+            call = (cuda_time_ms(lambda: spmm(P, X)),
+                    graph_time_ms(lambda: spmm(P, X)))
+            print(f"[11] {tag} spmm {label} through spmm (with the "
+                  f"transposes): {call[0]:.4f} ms/call, device "
+                  f"{call[1]:.4f} ms")
+        else:
+            plain = (spmm_merge.spmm_merge_plain if kernel == "K3d"
+                     else ell_spmm.spmm_row_split_plain)
+            t = time_pair(lambda: spmm(P, X), lambda: plain(P, X))
+            nbytes = spmm_bytes(C.nnz, C.num_rows, C.num_cols, L_MULTI, 8)
+        t["library"] = lib_ms
+        t["bound"] = report(11, f"{tag} spmm float64 {label} ({kernel}) "
+                            f"L={L_MULTI}", t, fl, nbytes, fp64=True)
+        out[kernel] = t
+    return out
+
+
+def run_refined_multi(tag, A32, A64, C64, B):
+    """[11] ``cg_solve_multi_refined`` to REFINE_TOL, twice (the second
+    timed): every lane's float64 true residual on the float64 CSR ``C64``
+    below REFINE_TRUE_MAX."""
+    from tpusparse_torch import cg_solve_multi_refined
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg_solve_multi_refined(A32, A64, B, tolerance=REFINE_TOL)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    first, ms = walls
+    R = B - csr_matmat(C64.num_rows, C64.row_offsets, C64.col_indices,
+                       C64.values, res.x)
+    true_res = (torch.linalg.norm(R, dim=0)
+                / torch.linalg.norm(B, dim=0)).cpu().numpy()
+    check(res.x.dtype == torch.float64 and res.x.shape == B.shape
+          and torch.isfinite(res.x).all(), f"{tag}: finite float64 X")
+    check(float(res.residual.max()) < REFINE_TOL,
+          f"{tag}: every lane below {REFINE_TOL}")
+    check((true_res < REFINE_TRUE_MAX).all(),
+          f"{tag}: float64 true residuals {true_res}")
+    print(f"[11] cg_multi_refined {tag} L={B.shape[1]}: {res.refinements} "
+          f"refinements, {res.inner_iterations} inner iterations, residual "
+          f"max {float(res.residual.max()):.3e}, float64 true residual max "
+          f"{true_res.max():.3e}, {ms:.1f} ms (first solve {first:.1f} ms)")
 
 
 def main() -> int:
@@ -593,13 +872,29 @@ def main() -> int:
         k5_vs_plain(name, dia_planes_of(csr, pd), L, 80 + L)
         for name, csr in plane_fixtures(gen, read_market)
         for pd in (torch.float32, torch.bfloat16) for L in (1, 4, 16))
+    # the float64 twins on the same fixtures
+    D48d = plan_matrix(lap48, "auto", dtype=np.float64, device="cuda").dia
+    err64 = {"K1d": max(kd_dia_vs_plain("K1d", "lap3d-48", D48d, L, 90 + L)
+                        for L in F64_LS)}
+    for kernel, seed in (("K2d", 100), ("K3d", 120), ("K4d", 140)):
+        err64[kernel] = max(kd_csr_vs_plain(kernel, name, csr, seed + i)
+                            for i, (name, csr) in enumerate(fixtures))
+    err64["K5d"] = max(
+        kd_dia_vs_plain("K5d", name, dia_planes_of(csr, torch.float64), L,
+                        160 + L)
+        for name, csr in plane_fixtures(gen, read_market) for L in F64_LS)
     torch.cuda.synchronize()
     print(f"[2] done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # [3]-[4] the single-RHS path; count launches from here on
     counters = {"K1": (dia_stream, "LAUNCHES"), "K2": (merge_spmv, "LAUNCHES"),
                 "K3": (spmm_merge, "LAUNCHES"), "K4": (ell_spmm, "LAUNCHES"),
-                "K5": (dia_stream, "PLANES_LAUNCHES")}
+                "K5": (dia_stream, "PLANES_LAUNCHES"),
+                "K1d": (dia_stream, "LAUNCHES_F64"),
+                "K2d": (merge_spmv, "LAUNCHES_F64"),
+                "K3d": (spmm_merge, "LAUNCHES_F64"),
+                "K4d": (ell_spmm, "LAUNCHES_F64"),
+                "K5d": (dia_stream, "PLANES_LAUNCHES_F64")}
 
     def reset_counts():
         for m, attr in counters.values():
@@ -657,7 +952,7 @@ def main() -> int:
     run_cg_multi("gr_30_30 row_split (K4)", G, G,
                  rand(38, (gr.num_rows, L_MULTI)))
     path2 = read_counts("multi-RHS path", ("K1", "K3", "K4"))
-    del A16, M16, B160, X_true, R17, G, lap160
+    del A16, M16, B160, X_true, R17, G
     torch.cuda.empty_cache()
 
     # [8] variable-coefficient operators, one right-hand side, counted
@@ -734,7 +1029,77 @@ def main() -> int:
                     C7.values.double(), X_true).float()
     run_cg_multi("var-7-160 auto (K5, (L, n) state)", W, C7, B7, phase=9)
     path4 = read_counts("variable-coefficient multi-RHS path", ("K5",))
-    paths = (path1, path2, path3, path4)
+    del W, C7, X, Y, Y64, AX, XT, X_true, B7, V7, b7
+    torch.cuda.empty_cache()
+
+    # [10] float64, one right-hand side, counted from 0 again
+    from tpusparse_torch import cg_solve, cg_solve_refined
+
+    reset_counts()
+    L64, t10_k1 = slice_fp64_spmv("lap3d-160", lap160, "auto", "K1d", 50)
+    b64 = torch.from_numpy(lap160.to_scipy() @ np.random.default_rng(
+        51).standard_normal(lap160.num_cols)).cuda()
+    run_solve(10, "cg float64 lap3d-160 auto (K1d)",
+              lambda: cg_solve(L64, b64, max_iters=10000,
+                               tolerance=CG64_TOL),
+              lap160, b64, CG64_TOL, CG64_TRUE_MAX)
+    L32 = plan_matrix(lap160, "auto", device="cuda")
+    run_solve(10, "cg_refined lap3d-160 (K1 inner, K1d residuals)",
+              lambda: cg_solve_refined(L32, L64, b64), lap160, b64,
+              REFINE_TOL, REFINE_TRUE_MAX)
+    del L32, L64, b64
+    V64, t10_k5 = slice_fp64_spmv("var-7-160", var7, "auto", "K5d", 52)
+    b7 = torch.from_numpy(var7.to_scipy() @ np.random.default_rng(
+        53).standard_normal(var7.num_cols)).cuda()
+    V32 = plan_matrix(var7, "auto", device="cuda")
+    run_solve(10, "cg_refined var-7-160 (K5 inner, K5d residuals)",
+              lambda: cg_solve_refined(V32, V64, b7), var7, b7, REFINE_TOL,
+              REFINE_TRUE_MAX)
+    del V32, V64, b7
+    _, t10_k2 = slice_fp64_spmv("rmat-18-ef16", rmat18, "merge", "K2d", 54)
+    R64 = plan_matrix(rmat_spd17, "auto", dtype=np.float64, device="cuda")
+    check(isinstance(R64, merge_spmv.MergeDevice),
+          "rmat_spd-17-ef4 AUTO float64 plans merge (K2d)")
+    b17 = rand64(55, rmat_spd17.num_rows)
+    run_solve(10, "cg float64 rmat_spd-17-ef4 auto (K2d)",
+              lambda: cg_solve(R64, b17, max_iters=10000,
+                               tolerance=CG64_TOL),
+              rmat_spd17, b17, CG64_TOL, CG64_TRUE_MAX)
+    R32 = plan_matrix(rmat_spd17, "auto", device="cuda")
+    run_solve(10, "cg_refined rmat_spd-17-ef4 (K2 inner, K2d residuals)",
+              lambda: cg_solve_refined(R32, R64, b17), rmat_spd17, b17,
+              REFINE_TOL, REFINE_TRUE_MAX)
+    del R32, R64, b17
+    path5 = read_counts("float64 single-RHS path", ("K1d", "K2d", "K5d"))
+    torch.cuda.empty_cache()
+
+    # [11] float64 at L = 16, counted from 0 again
+    reset_counts()
+    C64 = plan_matrix(lap160, "reference", dtype=np.float64, device="cuda")
+    M64 = plan_matrix(lap160, "auto", dtype=np.float64, L=L_MULTI,
+                      device="cuda")
+    check(plan_kind(M64) == "dia" and M64.rest is None and isinstance(
+        M64.dia, dia_stream.DiaStreamDevice), "lap3d-160 AUTO float64 at "
+          "L=16 plans K1d")
+    t11_k1 = slice_fp64_spmm("lap3d-160", C64, (("auto", M64, "K1d"),),
+                             56)["K1d"]
+    X_true = rand64(57, (lap160.num_cols, L_MULTI))
+    B64 = csr_matmat(C64.num_rows, C64.row_offsets, C64.col_indices,
+                     C64.values, X_true)
+    M32 = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda")
+    run_refined_multi("lap3d-160 (K1 inner, K1d residuals)", M32, M64, C64,
+                      B64)
+    del C64, M64, M32, X_true, B64
+    torch.cuda.empty_cache()
+    Cr = plan_matrix(rmat18, "reference", dtype=np.float64, device="cuda")
+    t11 = slice_fp64_spmm("rmat-18-ef16", Cr, (
+        ("merge", plan_matrix(rmat18, "merge", dtype=np.float64, L=L_MULTI,
+                              device="cuda"), "K3d"),
+        ("row_split", plan_matrix(rmat18, "row_split", dtype=np.float64,
+                                  L=L_MULTI, device="cuda"), "K4d")), 58)
+    del Cr
+    path6 = read_counts("float64 multi-RHS path", ("K1d", "K3d", "K4d"))
+    paths = (path1, path2, path3, path4, path5, path6)
     print("[5] main-path launches: " + ", ".join(
         f"{k} {sum(p[k] for p in paths)}" for k in counters))
 
@@ -783,6 +1148,27 @@ def main() -> int:
         entry("K5 as the port of B2' (MXU-rotation body), f32 planes",
               "dia_planes.cu", b2_mxu, "K5", k5_err, t8_7["f32"],
               "var-7-160 spmv L=1, device time"),
+        entry("K1d masked DIA SpMV, float64", "dia_masked.cu",
+              "tpusparse/kernels/dia_stream.py:424", "K1d", err64["K1d"],
+              t10_k1, "lap3d-160 spmv float64 L=1, device time"),
+        entry("K1d masked DIA SpMM, float64", "dia_masked.cu",
+              "tpusparse/kernels/dia_stream.py:424", "K1d", err64["K1d"],
+              t11_k1, f"lap3d-160 spmm float64 L={L_MULTI} on (L, n), "
+              "device time"),
+        entry("K2d merge-path CSR SpMV, float64", "merge_spmv.cu",
+              "tpusparse/kernels/merge_df.py:287", "K2d", err64["K2d"],
+              t10_k2, "rmat-18-ef16 spmv float64 L=1, device time"),
+        entry("K3d merge-path CSR SpMM, float64", "merge_spmm.cu",
+              "tpusparse/kernels/merge_df.py:495", "K3d", err64["K3d"],
+              t11["K3d"], f"rmat-18-ef16 spmm float64 L={L_MULTI}, device "
+              "time"),
+        entry("K4d row-split CSR SpMM, float64", "rowsplit_spmm.cu",
+              "tpusparse/kernels/ell_df.py:186", "K4d", err64["K4d"],
+              t11["K4d"], f"rmat-18-ef16 spmm float64 L={L_MULTI}, device "
+              "time"),
+        entry("K5d value-plane DIA SpMV, float64 planes", "dia_planes.cu",
+              "tpusparse/kernels/dia_stream.py:332", "K5d", err64["K5d"],
+              t10_k5, "var-7-160 spmv float64 L=1, device time"),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

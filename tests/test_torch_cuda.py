@@ -20,7 +20,9 @@ from tpusparse_torch import (
     cg_solve,
     cg_solve_bf16,
     cg_solve_multi,
+    cg_solve_multi_refined,
     cg_solve_multi_refined_f32,
+    cg_solve_refined,
     plan_dia_bf16,
     plan_kind,
     plan_matrix,
@@ -120,6 +122,7 @@ def test_cg_on_card_matches_cpu(cuda):
 def test_no_fallback_on_cuda_tensors(cuda):
     csr = gen.make_laplacian_grid2d(4).to_csr()
     A = plan_matrix(csr, "auto", device=cuda)
+    # mixed types: float64 XT on a float32 operand
     with pytest.raises(TypeError):
         dia_stream.spmm_dia_stream_t(A.dia, torch.zeros(1, 16, device=cuda,
                                                         dtype=torch.float64))
@@ -260,6 +263,7 @@ def test_k5_empty_operands_launch_nothing(cuda):
 def test_k5_no_fallback_on_cuda_tensors(cuda):
     D = _planes(PLANE_CASES["var-7-12"](), cuda)
     n = D.num_rows
+    # mixed types: float64 XT on float32 planes
     with pytest.raises(TypeError):
         dia_stream.spmm_dia_planes_t(
             D, torch.zeros(1, n, device=cuda, dtype=torch.float64))
@@ -309,9 +313,140 @@ def test_variable_band_solvers_on_card_match_cpu(cuda):
 def test_spmm_kernels_refuse_wrong_operands(cuda, kernel):
     plan, matmat, _, _ = SPMM_KERNELS[kernel]
     A = plan(gen.make_laplacian_grid2d(4).to_csr(), cuda)
+    # mixed types: float64 X on a float32 operand
     with pytest.raises(TypeError):
         matmat(A, torch.zeros(16, 3, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="same device"):
         matmat(A, torch.zeros(16, 3))
     Y = spmm(A, torch.ones(16, 3, device=cuda))
     assert Y.is_cuda and Y.shape == (16, 3)
+
+
+# float64 twins K1d-K5d; u = 2^-53
+U64 = 2.0 ** -53
+
+
+def _x64(seed, dev, shape):
+    x = np.random.default_rng(seed).standard_normal(shape)
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("L", [1, 4, 16])
+def test_k1d_matches_plain_bitwise(cuda, L):
+    csr = gen.make_laplacian_grid3d(16).to_csr()
+    D = plan_matrix(csr, "auto", dtype=np.float64, device=cuda).dia
+    assert isinstance(D, dia_stream.DiaStreamDevice)
+    XT = _x64(L, cuda, (L, csr.num_cols))
+    before, before32 = dia_stream.LAUNCHES_F64, dia_stream.LAUNCHES
+    Y = dia_stream.spmm_dia_stream_t(D, XT)
+    assert dia_stream.LAUNCHES_F64 == before + 1
+    assert dia_stream.LAUNCHES == before32
+    assert Y.dtype == torch.float64 and Y.shape == (L, csr.num_cols)
+    assert torch.equal(Y, dia_stream.spmm_dia_masked_plain(D, XT))
+    assert torch.equal(Y, dia_stream.spmm_dia_stream_t(D, XT))
+
+
+@pytest.mark.parametrize("L", [1, 4, 16])
+@pytest.mark.parametrize("name", list(PLANE_CASES))
+def test_k5d_matches_plain_bitwise(cuda, name, L):
+    D = _planes(PLANE_CASES[name](), cuda, torch.float64)
+    XT = _x64(L, cuda, (L, D.num_cols))
+    before = dia_stream.PLANES_LAUNCHES_F64
+    Y = dia_stream.spmm_dia_planes_t(D, XT)
+    assert dia_stream.PLANES_LAUNCHES_F64 == before + 1
+    assert Y.dtype == torch.float64 and Y.shape == (L, D.num_rows)
+    assert torch.equal(Y, dia_stream.spmm_dia_planes_plain(D, XT))
+    assert torch.equal(Y, dia_stream.spmm_dia_planes_t(D, XT))
+
+
+@pytest.mark.parametrize("L", [1, 16])
+def test_k5d_at_64_planes(cuda, L):
+    """64 float64 planes stage a 64 KiB coefficient tile: past the
+    default 48 KiB of dynamic shared memory a launch gets."""
+    A = _band(600, 640, list(range(-40, 24)), 9)
+    host, rest = partition_dia(A, np.arange(-40, 24))
+    assert rest.nnz == 0
+    D = to_device_dia(host, cuda, torch.float64)
+    assert len(D.offsets) == 64
+    XT = _x64(L + 1, cuda, (L, D.num_cols))
+    Y = dia_stream.spmm_dia_planes_t(D, XT)
+    torch.cuda.synchronize()
+    assert torch.equal(Y, dia_stream.spmm_dia_planes_plain(D, XT))
+
+
+@pytest.mark.parametrize("L", [1, 3, 16])
+@pytest.mark.parametrize("kernel", list(SPMM_KERNELS))
+@pytest.mark.parametrize("name", list(CASES))
+def test_fp64_csr_kernels_match_plain(cuda, name, kernel, L):
+    """K3d and K4d (and K2d at L = 1) against their plain versions:
+    within 2 (nnz_i + 2) u (|A||X|), and two runs bitwise equal."""
+    plan, matmat, plain, module = SPMM_KERNELS[kernel]
+    csr = CASES[name]()
+    A = plan(csr, cuda, torch.float64)
+    X = _x64(11, cuda, (A.num_cols, L))
+    before = module.LAUNCHES_F64
+    Y1, Y2 = matmat(A, X), matmat(A, X)
+    assert module.LAUNCHES_F64 == before + (2 if A.num_rows else 0)
+    assert Y1.dtype == torch.float64 and torch.equal(Y1, Y2)
+    args = (A.num_rows, A.row_offsets, A.col_indices)
+    AX = csr_matmat(*args, A.values.abs(), X.abs())
+    nnz_i = (A.row_offsets[1:] - A.row_offsets[:-1]).double()[:, None]
+    assert torch.all((Y1 - plain(A, X)).abs()
+                     <= 2 * (nnz_i + 2) * U64 * AX)
+    if kernel == "K3" and L == 1:
+        M = merge_spmv.to_device_merge(csr, cuda, torch.float64)
+        before = merge_spmv.LAUNCHES_F64
+        y1, y2 = merge_spmv.merge_matvec(M, X[:, 0]), \
+            merge_spmv.merge_matvec(M, X[:, 0])
+        assert merge_spmv.LAUNCHES_F64 == before + (2 if M.num_rows else 0)
+        assert torch.equal(y1, y2)
+        assert torch.all((y1 - merge_spmv.spmv_merge_plain(M, X[:, 0])).abs()
+                         <= 2 * (nnz_i[:, 0] + 2) * U64 * AX[:, 0])
+
+
+def test_fp64_kernels_refuse_mixed_types(cuda):
+    csr = gen.make_laplacian_grid2d(4).to_csr()
+    n = csr.num_rows
+    for dtype, other in ((torch.float64, torch.float32),
+                         (torch.float32, torch.float64)):
+        host, _ = partition_dia(csr, select_diagonals(csr))
+        D1 = dia_stream.to_device_dia_stream(host, cuda, dtype)
+        D5 = to_device_dia(host, cuda, dtype)
+        with pytest.raises(TypeError):
+            dia_stream.spmm_dia_stream_t(D1, torch.zeros(1, n, device=cuda,
+                                                         dtype=other))
+        with pytest.raises(TypeError):
+            dia_stream.spmm_dia_planes_t(D5, torch.zeros(1, n, device=cuda,
+                                                         dtype=other))
+        M = merge_spmv.to_device_merge(csr, cuda, dtype)
+        with pytest.raises(TypeError):
+            merge_spmv.merge_matvec(M, torch.zeros(n, device=cuda,
+                                                   dtype=other))
+        for kernel, (plan, matmat, _, _) in SPMM_KERNELS.items():
+            with pytest.raises(TypeError):
+                matmat(plan(csr, cuda, dtype),
+                       torch.zeros(n, 2, device=cuda, dtype=other))
+
+
+def test_fp64_solvers_on_card_match_cpu(cuda):
+    csr = gen.make_variable_stencil(8, shift=1.0).to_csr()
+    b = _x64(21, "cpu", csr.num_rows)
+    B = _x64(22, "cpu", (csr.num_rows, 4))
+    out = {}
+    for dev in ("cpu", cuda):
+        A64 = plan_matrix(csr, "auto", dtype=np.float64, device=dev)
+        A32 = plan_matrix(csr, "auto", device=dev)
+        out[dev] = (cg_solve(A64, b.to(dev), tolerance=1e-10),
+                    cg_solve_multi(A64, B.to(dev), tolerance=1e-10),
+                    cg_solve_refined(A32, A64, b.to(dev)),
+                    cg_solve_multi_refined(A32, A64, B.to(dev)))
+    (c1, cm, cr, cmr), (g1, gm, gr, gmr) = out["cpu"], out[cuda]
+    assert g1.converged and abs(g1.iterations - c1.iterations) <= 1
+    assert bool(gm.converged.all()) and abs(gm.iterations - cm.iterations) <= 1
+    assert gr.refinements == cr.refinements and float(gr.residual) < 1e-12
+    assert gmr.refinements == cmr.refinements
+    assert float(gmr.residual.max()) < 1e-12
+    for g, c in ((g1, c1), (gm, cm), (gr, cr), (gmr, cmr)):
+        assert g.x.dtype == torch.float64
+        assert torch.linalg.norm(g.x.cpu() - c.x) \
+            <= 1e-8 * torch.linalg.norm(c.x)

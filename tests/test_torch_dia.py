@@ -155,6 +155,7 @@ def test_alpha_beta():
 def test_wrapper_rejects_bad_operands():
     csr = gen.make_laplacian_grid2d(4).to_csr()
     D = plan_matrix(csr, "auto", device="cpu").dia
+    # mixed types: float64 XT on a float32 operand
     with pytest.raises(TypeError):
         dia_stream.spmm_dia_stream_t(D, torch.zeros(1, 16,
                                                     dtype=torch.float64))

@@ -405,6 +405,7 @@ def test_k5_wrapper_rejects_bad_operands():
     _, host, _, _ = _case("var-7-8")
     D = dia.to_device_dia(host, "cpu")
     n = host.num_rows
+    # mixed types: float64 XT on float32 planes, float32 XT on float64
     with pytest.raises(TypeError):
         dia_stream.spmm_dia_planes_t(D, torch.zeros(1, n,
                                                     dtype=torch.float64))
@@ -416,7 +417,10 @@ def test_k5_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="no K5 path"):
         dia_stream.spmm_dia_planes_t(Dm, torch.zeros(1, n, device="meta"))
     with pytest.raises(TypeError):
-        dia.to_device_dia(host, "cpu", torch.float64)
+        dia_stream.spmm_dia_planes_t(
+            dia.to_device_dia(host, "cpu", torch.float64), torch.zeros(1, n))
+    with pytest.raises(TypeError):
+        dia.to_device_dia(host, "cpu", torch.float16)
     E = dia.DiaDevice(0, 5, (0,), torch.zeros(1, 0))
     assert dia_stream.spmm_dia_planes_t(E, torch.ones(2, 5)).shape == (2, 0)
 

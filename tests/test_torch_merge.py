@@ -124,6 +124,7 @@ def test_own_merge_plan_equals_carried():
 
 def test_wrapper_rejects_bad_operands():
     M = _carried(jgen.make_laplacian_grid2d(4).to_csr())
+    # mixed types: float64 x on a float32 operand
     with pytest.raises(TypeError):
         merge_spmv.merge_matvec(M, torch.zeros(16, dtype=torch.float64))
     with pytest.raises(ValueError):

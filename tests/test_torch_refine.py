@@ -171,5 +171,16 @@ def test_budgets_cap_the_solvers():
 
 @pytest.mark.parametrize("fn", ["cg_solve_refined", "cg_solve_multi_refined"])
 def test_fp64_refinements_name_a9(fn):
-    with pytest.raises(NotImplementedError, match="A9"):
-        getattr(refine, fn)(None, None, None)
+    """The float64 refinements (ROADMAP A9) take a float32 inner plan
+    and a float64 residual plan: a float32 ``A_acc`` (here the exact
+    float32 plan) raises TypeError, as does a bf16 inner plan."""
+    _, (P16, P32), A = _plans("var27")
+    n = A.shape[0]
+    b = torch.ones(n, 2) if fn == "cg_solve_multi_refined" else torch.ones(n)
+    P64 = plan_matrix(gen.make_variable_stencil(
+        12, dims=3, full=True, seed=2, shift=1.0).to_csr(), "dia",
+        dtype=np.float64, device="cpu")
+    with pytest.raises(TypeError, match="float64"):
+        getattr(refine, fn)(P32, P32, b)
+    with pytest.raises(TypeError, match="float32"):
+        getattr(refine, fn)(P16, P64, b)

@@ -243,6 +243,7 @@ def test_spmm_wrappers_reject_bad_operands():
     for strategy, matmat in (("merge", spmm_merge.merge_matmat),
                              ("row_split", ell_spmm.row_split_matmat)):
         A = plan_matrix(pcsr, strategy, device="cpu")
+        # mixed types: float64 X on a float32 operand
         with pytest.raises(TypeError):
             matmat(A, torch.zeros(16, 2, dtype=torch.float64))
         with pytest.raises(ValueError):

@@ -1,10 +1,13 @@
 // K3 — merge-path CSR SpMM for Hopper (sm_90a): Y (num_rows, L) = A X
-// for X (num_cols, L), both row-major float32.
+// for X (num_cols, L), both row-major float32; and K3d, its float64 twin.
 //
-// Replaces the Pallas TPU kernel tpusparse/kernels/spmm_merge.py::
-// _spmm_tiles (body _spmm_kernel). That kernel streams the tile payload
-// once for all L right-hand sides; so does this one. It is K2's pipeline
-// (merge_spmv.cu) carried to L lanes:
+// K3 replaces the Pallas TPU kernel tpusparse/kernels/spmm_merge.py::
+// _spmm_tiles (body _spmm_kernel). K3d replaces tpusparse/kernels/
+// merge_df.py::_spmm_tiles_df (body _spmm_kernel_df), the same SpMM in
+// double-float (two-f32) arithmetic because Mosaic has no 64-bit types;
+// here values, X, Y, partials and carry-outs are IEEE float64. Those
+// kernels stream the tile payload once for all L right-hand sides; so
+// does this one. It is K2's pipeline (merge_spmv.cu) carried to L lanes:
 //
 //   1. search:  the tile start coordinates (merge_path.cuh), once per
 //               call whatever L is: they depend only on the matrix.
@@ -25,7 +28,7 @@
 //
 // No float atomics: every sum has a fixed order, so two runs give
 // bitwise equal Y. Products and sums round separately (no FMA
-// contraction), as in the plain version.
+// contraction, rn_arith.cuh), as in the plain version.
 //
 // The TPU kernel's MXU prefix scan, its (L, 128) lane blocks, the lane
 // padding to multiples of 8, the VMEM lane chunking and the overflow COO
@@ -33,8 +36,9 @@
 // over the payload already in shared memory.
 //
 // Bound: bytes. Per nonzero 8 B of column index and value stream once
-// for all L lanes; X is gathered 4 L B per nonzero (cached when columns
-// cluster, so about once per row of X); Y is written 4 L B per row. At
+// for all L lanes (12 B in float64); X is gathered 4 L B per nonzero
+// (8 L B in float64; cached when columns cluster, so about once per row
+// of X); Y is written 4 L B per row (8 L B). At
 // L = 16 the X and Y streams outweigh the payload, and the gather of
 // X rows is what the design keeps coalesced. Index arithmetic on X, Y
 // and the carry-outs is 64-bit: n L passes 2^31 at real sizes.
@@ -45,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "merge_path.cuh"
+#include "rn_arith.cuh"
 
 namespace {
 
@@ -60,30 +65,32 @@ constexpr int kMaxLaneWidth = 32;
 // The partial that the groups lo .. hi-1 contribute to the row in
 // progress at the end of group hi-1: the sum, in group order, of their
 // end partials from the last group in [lo, hi) that completed a row.
-__device__ __forceinline__ float run_partial(const float* s_run,
-                                             const int* s_done, int hi,
-                                             int lane, int log2w) {
+template <typename T>
+__device__ __forceinline__ T run_partial(const T* s_run, const int* s_done,
+                                         int hi, int lane, int log2w) {
   int k = hi - 1;
   while (k > 0 && !s_done[k]) --k;
-  float s = 0.0f;
+  T s = T(0);
   for (int j = k < 0 ? 0 : k; j < hi; ++j) {
-    s = __fadd_rn(s, s_run[(j << log2w) + lane]);
+    s = tps_rn::add(s, s_run[(j << log2w) + lane]);
   }
   return s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kBlock)
 merge_spmm_consume_kernel(const int* __restrict__ row_offsets,
                           const int* __restrict__ col_indices,
-                          const float* __restrict__ values,
-                          const float* __restrict__ X, float* __restrict__ Y,
+                          const T* __restrict__ values,
+                          const T* __restrict__ X, T* __restrict__ Y,
                           const Coord* __restrict__ coords, int num_rows,
                           int L, int log2w, int* __restrict__ carry_rows,
-                          float* __restrict__ carry_vals) {
+                          T* __restrict__ carry_vals) {
+  // 18 KB of shared memory in float64, 13 KB in float32
   __shared__ int s_row_end[kTileItems + 1];
   __shared__ int s_col[kTileItems];
-  __shared__ float s_val[kTileItems];
-  __shared__ float s_run[kBlock];   // (group, lane): partial at group end
+  __shared__ T s_val[kTileItems];
+  __shared__ T s_run[kBlock];       // (group, lane): partial at group end
   __shared__ int s_done[kBlock];    // group: completed at least one row
 
   const Coord start = coords[blockIdx.x];
@@ -121,16 +128,16 @@ merge_spmm_consume_kernel(const int* __restrict__ row_offsets,
     const bool active = l < L;
     int row = c.row;  // local to the tile
     int nz = c.nz;
-    float running = 0.0f;
+    T running = T(0);
     int done = 0;
     int first_row = 0;
-    float first_val = 0.0f;
+    T first_val = T(0);
     for (int item = d0; item < d1; ++item) {
       if (start.nz + nz < s_row_end[row]) {
-        const float xv =
+        const T xv =
             active ? __ldg(X + static_cast<long long>(s_col[nz]) * L + l)
-                   : 0.0f;
-        running = __fadd_rn(running, __fmul_rn(s_val[nz], xv));
+                   : T(0);
+        running = tps_rn::add(running, tps_rn::mul(s_val[nz], xv));
         ++nz;
       } else {
         if (done) {
@@ -142,7 +149,7 @@ merge_spmm_consume_kernel(const int* __restrict__ row_offsets,
           first_row = row;
           first_val = running;
         }
-        running = 0.0f;
+        running = T(0);
         ++row;
       }
     }
@@ -150,10 +157,10 @@ merge_spmm_consume_kernel(const int* __restrict__ row_offsets,
     if (lane == 0) s_done[g] = done;
     __syncthreads();
     if (done && active) {
-      const float head =
-          g > 0 ? run_partial(s_run, s_done, g, lane, log2w) : 0.0f;
+      const T head =
+          g > 0 ? run_partial(s_run, s_done, g, lane, log2w) : T(0);
       Y[static_cast<long long>(start.row + first_row) * L + l] =
-          __fadd_rn(head, first_val);
+          tps_rn::add(head, first_val);
     }
     if (g == G - 1 && active) {
       carry_vals[static_cast<long long>(blockIdx.x) * L + l] =
@@ -163,10 +170,11 @@ merge_spmm_consume_kernel(const int* __restrict__ row_offsets,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kSearchThreads)
 merge_spmm_fixup_kernel(const int* __restrict__ carry_rows,
-                        const float* __restrict__ carry_vals, int num_tiles,
-                        int num_rows, int L, float* __restrict__ Y) {
+                        const T* __restrict__ carry_vals, int num_tiles,
+                        int num_rows, int L, T* __restrict__ Y) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * kSearchThreads + threadIdx.x;
   if (idx >= static_cast<long long>(num_tiles) * L) return;
@@ -174,27 +182,19 @@ merge_spmm_fixup_kernel(const int* __restrict__ carry_rows,
   const int l = static_cast<int>(idx % L);
   const int r = carry_rows[c];
   if (r >= num_rows || (c > 0 && carry_rows[c - 1] == r)) return;
-  float s = carry_vals[idx];
+  T s = carry_vals[idx];
   for (int k = c + 1; k < num_tiles && carry_rows[k] == r; ++k) {
-    s = __fadd_rn(s, carry_vals[static_cast<long long>(k) * L + l]);
+    s = tps_rn::add(s, carry_vals[static_cast<long long>(k) * L + l]);
   }
   const long long yi = static_cast<long long>(r) * L + l;
-  Y[yi] = __fadd_rn(Y[yi], s);
+  Y[yi] = tps_rn::add(Y[yi], s);
 }
 
-}  // namespace
-
-// Y (num_rows, L) = A @ X (num_cols, L) for CSR (row_offsets,
-// col_indices, values), row-major float32. Scratch: tile_coords
-// (num_tiles + 1 int pairs), carry_rows (num_tiles) and carry_vals
-// (num_tiles, L), with num_tiles = ceil((num_rows + nnz) /
-// tps_merge_tile_items()). Returns the cudaGetLastError() code after the
-// three launches.
-extern "C" int tps_merge_spmm(const void* row_offsets, const void* col_indices,
-                              const void* values, const void* X, void* Y,
-                              void* tile_coords, void* carry_rows,
-                              void* carry_vals, int num_rows, int nnz,
-                              int num_tiles, int L, void* stream) {
+template <typename T>
+int run(const void* row_offsets, const void* col_indices, const void* values,
+        const void* X, void* Y, void* tile_coords, void* carry_rows,
+        void* carry_vals, int num_rows, int nnz, int num_tiles, int L,
+        void* stream) {
   if (L < 1 || !tps_merge::tile_count_ok(num_rows, nnz, num_tiles)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -205,21 +205,51 @@ extern "C" int tps_merge_spmm(const void* row_offsets, const void* col_indices,
   const int* ro = static_cast<const int*>(row_offsets);
   Coord* coords = static_cast<Coord*>(tile_coords);
   int* crow = static_cast<int*>(carry_rows);
-  float* cval = static_cast<float*>(carry_vals);
-  float* Yf = static_cast<float*>(Y);
+  T* cval = static_cast<T*>(carry_vals);
+  T* Yv = static_cast<T*>(Y);
 
   const int search_blocks = (num_tiles + 1 + kSearchThreads - 1) /
                             kSearchThreads;
   merge_search_kernel<<<search_blocks, kSearchThreads, 0, s>>>(
       ro, num_rows, nnz, num_tiles, coords);
-  merge_spmm_consume_kernel<<<num_tiles, kBlock, 0, s>>>(
+  merge_spmm_consume_kernel<T><<<num_tiles, kBlock, 0, s>>>(
       ro, static_cast<const int*>(col_indices),
-      static_cast<const float*>(values), static_cast<const float*>(X), Yf,
-      coords, num_rows, L, log2w, crow, cval);
+      static_cast<const T*>(values), static_cast<const T*>(X), Yv, coords,
+      num_rows, L, log2w, crow, cval);
   const long long fix_threads = static_cast<long long>(num_tiles) * L;
   const unsigned fixup_blocks = static_cast<unsigned>(
       (fix_threads + kSearchThreads - 1) / kSearchThreads);
-  merge_spmm_fixup_kernel<<<fixup_blocks, kSearchThreads, 0, s>>>(
-      crow, cval, num_tiles, num_rows, L, Yf);
+  merge_spmm_fixup_kernel<T><<<fixup_blocks, kSearchThreads, 0, s>>>(
+      crow, cval, num_tiles, num_rows, L, Yv);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Y (num_rows, L) = A @ X (num_cols, L) for CSR (row_offsets,
+// col_indices, values), row-major float32 (K3). Scratch: tile_coords
+// (num_tiles + 1 int pairs), carry_rows (num_tiles) and carry_vals
+// (num_tiles, L), with num_tiles = ceil((num_rows + nnz) /
+// tps_merge_tile_items()). Returns the cudaGetLastError() code after the
+// three launches.
+extern "C" int tps_merge_spmm(const void* row_offsets, const void* col_indices,
+                              const void* values, const void* X, void* Y,
+                              void* tile_coords, void* carry_rows,
+                              void* carry_vals, int num_rows, int nnz,
+                              int num_tiles, int L, void* stream) {
+  return run<float>(row_offsets, col_indices, values, X, Y, tile_coords,
+                    carry_rows, carry_vals, num_rows, nnz, num_tiles, L,
+                    stream);
+}
+
+// The same in float64 (K3d): values, X, Y and carry_vals are double.
+extern "C" int tps_merge_spmm_f64(const void* row_offsets,
+                                  const void* col_indices, const void* values,
+                                  const void* X, void* Y, void* tile_coords,
+                                  void* carry_rows, void* carry_vals,
+                                  int num_rows, int nnz, int num_tiles, int L,
+                                  void* stream) {
+  return run<double>(row_offsets, col_indices, values, X, Y, tile_coords,
+                     carry_rows, carry_vals, num_rows, nnz, num_tiles, L,
+                     stream);
 }

@@ -1,9 +1,10 @@
 """CSR sparse matrix: a host numpy container with ``to(device)``.
 
 Port of ``tpusparse/formats/csr.py``. The arrays are numpy on the host;
-``to(device)`` gives the same matrix as torch tensors (int32
-``row_offsets`` and ``col_indices``, float32 ``values``), which is the
-operand of the ``reference`` strategy and the source of the merge plan.
+``to(device, dtype)`` gives the same matrix as torch tensors (int32
+``row_offsets`` and ``col_indices``, float32 or float64 ``values``),
+which is the operand of the ``reference`` strategy and the source of the
+merge and row-split plans.
 """
 
 from __future__ import annotations
@@ -15,6 +16,23 @@ import numpy as np
 import torch
 
 INT32_MAX = 2**31 - 1
+
+# The value types the port's plans hold, and their numpy types.
+NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64}
+VALUE_DTYPES = tuple(NUMPY_OF)
+
+
+def value_dtype(dtype) -> torch.dtype:
+    """The torch value type of a plan for ``dtype`` (a numpy or torch
+    float32 or float64); raises TypeError for any other."""
+    td = dtype
+    if not isinstance(td, torch.dtype):
+        td = {np.dtype(v): k for k, v in NUMPY_OF.items()}.get(
+            np.dtype(dtype))
+    if td not in NUMPY_OF:
+        raise TypeError(f"dtype {dtype}: plans hold float32 or float64 "
+                        "values")
+    return td
 
 
 @dataclasses.dataclass
@@ -66,10 +84,12 @@ class CsrMatrix:
         return CsrMatrix(self.num_rows, self.num_cols, self.row_offsets,
                          self.col_indices, self.values.astype(dtype))
 
-    def to(self, device) -> "CsrMatrix":
+    def to(self, device, dtype=torch.float32) -> "CsrMatrix":
         """The same matrix as torch tensors on ``device``: int32 offsets
-        and column indices, float32 values. Raises when nnz does not fit
-        int32 offsets."""
+        and column indices, values in ``dtype`` (float32, or float64,
+        which keeps float64 host values unrounded). Raises when nnz does
+        not fit int32 offsets."""
+        dtype = value_dtype(dtype)
         if self.nnz > INT32_MAX:
             raise ValueError(
                 f"nnz={self.nnz} does not fit int32 row offsets (< 2^31)")
@@ -77,7 +97,7 @@ class CsrMatrix:
             raise ValueError("dimensions must fit int32")
         ro = np.asarray(self.row_offsets, dtype=np.int32)
         ci = np.asarray(self.col_indices, dtype=np.int32)
-        va = np.asarray(self.values, dtype=np.float32)
+        va = np.asarray(self.values, dtype=NUMPY_OF[dtype])
         return CsrMatrix(
             self.num_rows, self.num_cols,
             torch.from_numpy(np.ascontiguousarray(ro)).to(device),

@@ -7,7 +7,7 @@ splits a CSR into those diagonals (``DiaHost``) and a CSR remainder,
 and ``plane_constants`` detects constant-coefficient diagonals, which
 compress to one bit per row (``kernels/dia_stream.mask_words``).
 ``to_device_dia`` ships the K value planes (``DiaDevice``), float32 or
-bf16, for the value-plane kernel K5.
+bf16 for the value-plane kernel K5, float64 for its twin K5d.
 
 Layout: ``data[k, i] = A[i, i + offsets[k]]``, zero where out of range.
 """
@@ -26,6 +26,9 @@ from tpusparse_torch.formats.csr import CsrMatrix
 # both packages split a matrix the same way.
 MIN_OCCUPANCY = 0.25
 MAX_DIAGS = 64
+
+# Plane types of a DiaDevice: float32 and bf16 (K5), float64 (K5d).
+PLANE_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
 @dataclasses.dataclass
@@ -115,8 +118,9 @@ def plane_constants(data: np.ndarray):
 @dataclasses.dataclass
 class DiaDevice:
     """Value-plane DIA operand on a device: ``data`` (K, num_rows),
-    contiguous, float32 or bf16, ``data[k, i] = A[i, i + offsets[k]]``
-    and zero out of range; ``offsets`` a static tuple of K ints.
+    contiguous, float32, bf16 or float64, ``data[k, i] = A[i, i +
+    offsets[k]]`` and zero out of range; ``offsets`` a static tuple of K
+    ints.
 
     The counterpart of the JAX ``DiaDevice`` and of the value-plane form
     of the JAX ``DiaStreamDevice``; the TPU blocking of the latter
@@ -132,13 +136,16 @@ class DiaDevice:
 def to_device_dia(dia_host: DiaHost, device,
                   plane_dtype=torch.float32) -> DiaDevice:
     """Ship a host DIA plan as value planes, even for a
-    constant-coefficient operator (the JAX ``masked=False``). bf16
-    planes round on the host as the JAX package's ``prepare_stream``
-    does: to float32 first, then to bf16 with round-to-nearest-even."""
-    if plane_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"planes are float32 or bf16, got {plane_dtype}")
+    constant-coefficient operator (the JAX ``masked=False``). float64
+    planes keep the host values unrounded; bf16 planes round on the host
+    as the JAX package's ``prepare_stream`` does: to float32 first, then
+    to bf16 with round-to-nearest-even."""
+    if plane_dtype not in PLANE_DTYPES:
+        raise TypeError(f"planes are float32, bf16 or float64, got "
+                        f"{plane_dtype}")
+    host_dtype = np.float64 if plane_dtype == torch.float64 else np.float32
     planes = torch.from_numpy(
-        np.ascontiguousarray(dia_host.data, dtype=np.float32))
+        np.ascontiguousarray(dia_host.data, dtype=host_dtype))
     return DiaDevice(dia_host.num_rows, dia_host.num_cols,
                      tuple(int(o) for o in dia_host.offsets),
                      planes.to(plane_dtype).to(device).contiguous())

@@ -31,24 +31,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 # C entry points: name -> argtypes. Every entry returns the
-# cudaGetLastError() code after its launches (0 = success).
+# cudaGetLastError() code after its launches (0 = success). Each float32
+# kernel has a float64 twin, ``<name>_f64``, built from the same template
+# and taking double operands (and, for the masked DIA kernel, double
+# host coefficients).
 SIGNATURES = {
-    # mask, xt, yt, n, L, K, offsets (host int*), vals (host float*), stream
+    # mask, xt, yt, n, L, K, offsets (host int*), vals (host float* or
+    # double*), stream
     "tps_dia_masked": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
+    "tps_dia_masked_f64": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
     # planes, plane_bf16, xt, yt, num_rows, num_cols, L, K, offsets (host
     # long long*), stream
     "tps_dia_planes": (_P, _I32, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
+    # the same with float64 planes and no plane_bf16 flag
+    "tps_dia_planes_f64": (_P, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
     # row_offsets, col_indices, values, x, y, tile_coords, carry_rows,
     # carry_vals, num_rows, nnz, num_tiles, stream
     "tps_merge_spmv": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                        _P),
+    "tps_merge_spmv_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                           _I32, _P),
     "tps_merge_tile_items": (),
     # row_offsets, col_indices, values, X, Y, tile_coords, carry_rows,
     # carry_vals, num_rows, nnz, num_tiles, L, stream
     "tps_merge_spmm": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                        _I32, _P),
+    "tps_merge_spmm_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                           _I32, _I32, _P),
     # row_offsets, col_indices, values, X, Y, num_rows, L, stream
     "tps_rowsplit_spmm": (_P, _P, _P, _P, _P, _I32, _I32, _P),
+    "tps_rowsplit_spmm_f64": (_P, _P, _P, _P, _P, _I32, _I32, _P),
 }
 
 _lib: ctypes.CDLL | None = None

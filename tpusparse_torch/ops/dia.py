@@ -1,7 +1,10 @@
 """DIA SpMV / SpMM on value planes (port of ``tpusparse/ops/dia.py``).
 
 For each stored diagonal ``off``: ``y[i] += data[k, i] * x[i + off]``,
-in offset order, through kernel K5 (``kernels/dia_stream.py``). The
+in offset order, through kernel K5 (``kernels/dia_stream.py``) for
+float32 and bf16 planes, in float32, and K5d for float64 planes, in
+float64: x is cast to the planes' compute type, so a float64 plan never
+computes in float32. The
 operator may be rectangular (x of length num_cols); the JAX package's
 ``_pads`` zero padding of x is the guard K5 applies to its loads.
 
@@ -14,13 +17,16 @@ from __future__ import annotations
 import torch
 
 from tpusparse_torch.formats.dia import DiaDevice
-from tpusparse_torch.kernels.dia_stream import spmm_dia_planes_t
+from tpusparse_torch.kernels.dia_stream import (
+    planes_value_dtype,
+    spmm_dia_planes_t,
+)
 
 
 def spmm_dia_t(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
     """Transposed-layout SpMM: XT (L, num_cols) -> A @ X as (L,
     num_rows), with no boundary transposes (the solvers' layout)."""
-    return spmm_dia_planes_t(D, XT.to(torch.float32).contiguous())
+    return spmm_dia_planes_t(D, XT.to(planes_value_dtype(D)).contiguous())
 
 
 def spmm_dia(D: DiaDevice, X, alpha=1.0, beta=0.0, Y=None):

@@ -3,7 +3,9 @@
 ``A = A_dia + A_rest`` elementwise, so ``y = A_dia x + A_rest x``: the
 dense diagonals run on the masked DIA kernel (K1) or, where they are not
 square and constant-coefficient, on the value-plane kernel (K5); the
-scattered remainder on the merge plan (K2 for SpMV, K3 for SpMM).
+scattered remainder on the merge plan (K2 for SpMV, K3 for SpMM). A
+float64 plan runs the float64 twins (K1d or K5d, then K2d or K3d), and
+both parts and their sum stay float64: nothing passes through float32.
 """
 
 from __future__ import annotations

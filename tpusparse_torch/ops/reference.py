@@ -5,7 +5,9 @@ Port of ``tpusparse/ops/reference.py``:
   * ``spmv_numpy`` — host golden model, always in float64;
   * ``spmv_reference`` / ``spmm_reference`` — plain-torch CSR
     products: gather x (or the rows of X), multiply, ``index_add_`` over
-    expanded row ids. They are the ``reference`` strategy, and
+    expanded row ids, in the dtype of the operand's values (float64
+    values give the float64 golden product on the card). They are the
+    ``reference`` strategy, and
     ``csr_matvec`` / ``csr_matmat`` are the plain versions behind the
     merge and row-split kernels (in the dtype of the values they are
     given, so float64 values give the float64 product the kernels are

@@ -1,24 +1,35 @@
 """Public SpMV / SpMM with strategy planning (port of
 ``tpusparse/ops/spmv.py``).
 
-``plan_matrix`` builds a device operand for a host CsrMatrix;
-``spmv`` (x of shape (num_cols,)) and ``spmm`` (X of shape
-(num_cols, L)) dispatch on the operand type. The strategies the port
-runs, at any L >= 1:
+``plan_matrix`` builds a device operand for a host CsrMatrix, in
+float32 or float64; ``spmv`` (x of shape (num_cols,)) and ``spmm`` (X of
+shape (num_cols, L)) dispatch on the operand type and compute in the
+plan's type (x is cast to it). The strategies the port runs, at any
+L >= 1 and in either type (the float64 kernels K1d-K5d are the IEEE
+float64 twins of K1-K5):
 
   AUTO       — a matrix whose dense diagonals carry at least
                ``DIA_MIN_COVERAGE`` of the nonzeros peels them: a square
                constant-coefficient band of at most 32 diagonals goes to
-               the masked DIA kernel (K1), any other band (rectangular,
-               variable coefficients, up to 64 diagonals) to the
-               value-plane kernel (K5); a scattered remainder goes to the
-               merge plan. Everything else goes to the merge plan.
+               the masked DIA kernel (K1, K1d), any other band
+               (rectangular, variable coefficients, up to 64 diagonals)
+               to the value-plane kernel (K5, K5d); a scattered remainder
+               goes to the merge plan. Everything else goes to the merge
+               plan.
   DIA        — the same peel without the coverage gate.
-  MERGE      — the merge plan on the whole matrix: K2 for SpMV, K3 for
-               SpMM.
-  ROW_SPLIT  — (aliases 'ell', 'simple') the row-split kernel K4, for
-               SpMV and SpMM; never an AUTO choice.
-  REFERENCE  — the plain-torch golden product on ``csr.to(device)``.
+  MERGE      — the merge plan on the whole matrix: K2 (K2d) for SpMV, K3
+               (K3d) for SpMM.
+  ROW_SPLIT  — (aliases 'ell', 'simple') the row-split kernel K4 (K4d),
+               for SpMV and SpMM; never an AUTO choice.
+  REFERENCE  — the plain-torch golden product on ``csr.to(device,
+               dtype)``.
+
+A float64 plan is strict IEEE float64 (``plan_semantics`` 'ieee-f64'),
+held to the JAX package's ``strategy='reference'`` float64 path. The
+JAX package's float64 AUTO plans are double-float (two-f32) kernels,
+which exist because the TPU has no 64-bit types, and the gates that
+pick them (``DIA_STREAM_F64_MIN_BYTES``, ``DF_ELL_MIN_OCC``, the VMEM
+size limits) follow TPU VMEM and XLA fusion; none is ported.
 
 ``plan_dia_bf16`` builds the opt-in bf16-plane operator of the
 mixed-precision solvers (``solvers/refine.py``); AUTO never does.
@@ -31,8 +42,8 @@ the XLA DIA op and the stream kernels (``DIA_STREAM_MIN_BYTES``,
 ``DIA_STREAM_MAX_L``, ``stream_ok`` and the ``fits_stream`` block limit
 on |offset|): they follow XLA's fusion capacity and the TPU's VMEM
 blocks, and one Hopper kernel (K5) covers both regimes. The other
-strategies, float64 and reordering raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+strategies and reordering raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ import warnings
 import numpy as np
 import torch
 
-from tpusparse_torch.formats.csr import CsrMatrix
+from tpusparse_torch.formats.csr import CsrMatrix, value_dtype
 from tpusparse_torch.formats.dia import (
     DiaDevice,
     diagonal_profile,
@@ -110,48 +121,39 @@ _NOT_PORTED = {
 DIA_MIN_COVERAGE = 0.3
 
 
-def _check_float32(dtype) -> None:
-    if isinstance(dtype, torch.dtype):
-        ok = dtype == torch.float32
-    else:
-        ok = np.dtype(dtype) == np.float32
-    if not ok:
-        raise NotImplementedError(
-            f"dtype {dtype}: the port plans float32 only; float64 plans "
-            "(kernels B7-B11) are ROADMAP A9")
-
-
 def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
                 L: int = 1, device="cuda", reorder=None):
-    """Build the device operand of a host CsrMatrix on ``device``. ``L``
-    (>= 1) is the number of right-hand sides the plan will serve; every
-    plan of the port serves any L, so it does not change the choice."""
+    """Build the device operand of a host CsrMatrix on ``device``, its
+    values in ``dtype`` (numpy or torch float32 or float64; float64
+    keeps the host values unrounded). ``L`` (>= 1) is the number of
+    right-hand sides the plan will serve; every plan of the port serves
+    any L, so it does not change the choice."""
     if reorder:
         raise NotImplementedError(
             "reorder: reordered plans (kernel B13) are ROADMAP A10")
     strategy = SpmvStrategy.parse(strategy)
-    _check_float32(dtype)
+    dtype = value_dtype(dtype)
     if int(L) < 1:
         raise ValueError(f"L={L}: the number of right-hand sides is >= 1")
     if strategy in _NOT_PORTED:
         raise NotImplementedError(
             f"strategy '{strategy.value}': {_NOT_PORTED[strategy]}")
     if strategy == SpmvStrategy.REFERENCE:
-        return csr.to(device)
+        return csr.to(device, dtype)
     if strategy == SpmvStrategy.ROW_SPLIT:
-        return to_device_row_split(csr, device)
+        return to_device_row_split(csr, device, dtype)
     if strategy in (SpmvStrategy.AUTO, SpmvStrategy.DIA):
-        plan = _try_plan_dia(csr, strategy, device)
+        plan = _try_plan_dia(csr, strategy, device, dtype)
         if plan is not None:
             return plan
-    return to_device_merge(csr, device)
+    return to_device_merge(csr, device, dtype)
 
 
-def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device):
-    """DIA / hybrid plan, or None when the matrix has no diagonal
-    structure worth peeling (explicit 'dia' skips the coverage gate).
-    A square constant-coefficient band is masked (K1); any other band
-    keeps its value planes (K5)."""
+def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device, dtype):
+    """DIA / hybrid plan in ``dtype``, or None when the matrix has no
+    diagonal structure worth peeling (explicit 'dia' skips the coverage
+    gate). A square constant-coefficient band is masked (K1, K1d); any
+    other band keeps its value planes (K5, K5d)."""
     if csr.nnz == 0:
         return None
     offsets = select_diagonals(csr)
@@ -164,10 +166,11 @@ def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device):
         return None
     dia_host, rest = partition_dia(csr, offsets)
     if csr.num_rows == csr.num_cols and _maskable(dia_host)[1]:
-        dev = to_device_dia_stream(dia_host, device)
+        dev = to_device_dia_stream(dia_host, device, dtype)
     else:
-        dev = to_device_dia(dia_host, device)
-    rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
+        dev = to_device_dia(dia_host, device, plane_dtype=dtype)
+    rest_plan = (to_device_merge(rest, device, dtype) if rest.nnz > 0
+                 else None)
     return HybridPlan(dev, rest_plan, csr.nnz)
 
 
@@ -203,6 +206,20 @@ def plan_dia_bf16(csr: CsrMatrix, L: int = 1, device="cuda") -> HybridPlan:
     return HybridPlan(dev, rest_plan, csr.nnz)
 
 
+def plan_dtype(A) -> torch.dtype:
+    """The stored value type of a plan: float32 or float64, or bf16 for
+    bf16 value planes (a hybrid takes it from its DIA part, whose
+    remainder then holds float32)."""
+    plan_kind(A)
+    if isinstance(A, HybridPlan):
+        A = A.dia
+    if isinstance(A, DiaStreamDevice):
+        return A.vals.dtype
+    if isinstance(A, DiaDevice):
+        return A.data.dtype
+    return A.values.dtype
+
+
 def _bf16_planes(A) -> bool:
     return isinstance(A, DiaDevice) and A.data.dtype == torch.bfloat16
 
@@ -224,12 +241,14 @@ def plan_kind(A) -> str:
 
 
 def plan_semantics(A) -> str:
-    """Numeric semantics a plan's kernels deliver: ``'bf16-plane(~4e-3)'``
-    for bf16 value planes (a hybrid takes it from its DIA part, as in
-    the JAX package), else ``'f32'`` until float64 (ROADMAP A9)."""
-    plan_kind(A)
-    dia = A.dia if isinstance(A, HybridPlan) else A
-    return "bf16-plane(~4e-3)" if _bf16_planes(dia) else "f32"
+    """Numeric semantics a plan's kernels deliver, with the JAX
+    package's labels: ``'ieee-f64'`` for a float64 plan (strict IEEE
+    float64, every kernel K1d-K5d and the reference product),
+    ``'bf16-plane(~4e-3)'`` for bf16 value planes (a hybrid takes it
+    from its DIA part, as in the JAX package), else ``'f32'``. The
+    JAX package's ``'double-float(~1e-14)'`` plans have no counterpart."""
+    return {torch.float64: "ieee-f64",
+            torch.bfloat16: "bf16-plane(~4e-3)"}.get(plan_dtype(A), "f32")
 
 
 def spmv(A, x, alpha=1.0, beta=0.0, y=None):

@@ -24,11 +24,15 @@ own CG, with ``_cg_solve_multi_impl``'s semantics:
     converged lane freezes;
   * the history holds the largest ``sqrt(r.r) / ||b||`` over the lanes.
 
-A plan that is all diagonal runs (no remainder), masked (K1) or value
-planes of either type (K5), keeps the whole state in (L, n), the
-kernels' own layout, with no transposes per iteration (the JAX
+A plan that is all diagonal runs (no remainder), masked (K1, K1d) or
+value planes of any type (K5, K5d), keeps the whole state in (L, n),
+the kernels' own layout, with no transposes per iteration (the JAX
 package's ``_pure_dia_of`` / ``_dia_t_callable``); every other plan
 keeps (n, L) and calls ``spmm``.
+
+The state is in ``b``'s dtype: a float64 ``b`` on a float64 plan (the
+kernels K1d-K5d) keeps x, r, p, the dots, ``alpha``, ``beta`` and the
+history in float64 end to end.
 
 The loops are eager: every iteration runs the plan's kernel and BLAS-1
 on the device and makes one host sync, to read the convergence

@@ -1,7 +1,18 @@
-"""Mixed-precision solvers on a bf16-plane operator (port of the
-bf16-plane part of ``tpusparse/solvers/refine.py``).
+"""Mixed-precision solvers (port of ``tpusparse/solvers/refine.py``).
 
-A variable-coefficient diagonal operator is bound by its plane traffic
+float64 solutions at float32 speed (``_solve_refined``):
+
+  * ``cg_solve_refined`` / ``cg_solve_multi_refined``: classic iterative
+    refinement, ``r = b - A_acc x`` in float64 on a float64 plan (the
+    kernels K1d-K5d), an inner CG on the float32 plan ``A32`` (K1-K5)
+    for the correction ``d`` from ``r`` rounded to float32, and ``x +=
+    d`` in float64. The JAX package's double-float residual plans and
+    its ``jax_enable_x64`` check have no counterpart: a float64 plan
+    here is IEEE float64, and the solvers raise TypeError unless
+    ``A_acc`` is one and ``A32`` is a float32 plan.
+
+float32 solutions from a bf16-plane operator (the bf16-plane part):
+a variable-coefficient diagonal operator is bound by its plane traffic
 at L = 1; ``ops.spmv.plan_dia_bf16`` stores the planes in bf16 (half the
 bytes, an operator perturbed by about 4e-3) and full-precision residuals
 on the exact float32 plan correct the error:
@@ -21,8 +32,7 @@ per test, and call the plans' kernels (K5 for the bf16 planes). The JAX
 package's plan baking (``bake``) and its fused XLA matvec are not
 ported. Its baked bf16 path does its arithmetic in bf16 (ROADMAP
 C-ref1); the port upcasts the planes in-register and is held to its
-``bake=False`` path. The float64 refinements ``cg_solve_refined`` and
-``cg_solve_multi_refined`` come with float64 plans (ROADMAP A9).
+``bake=False`` path.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import dataclasses
 import torch
 
 from tpusparse_torch.ops.blas import dot_multiple, dot_single
-from tpusparse_torch.ops.spmv import spmm, spmv
+from tpusparse_torch.ops.spmv import plan_semantics, spmm, spmv
 from tpusparse_torch.solvers.cg import cg_solve, cg_solve_multi
 
 
@@ -40,10 +50,12 @@ from tpusparse_torch.solvers.cg import cg_solve, cg_solve_multi
 class RefineResult:
     """Result of the refinement solvers."""
 
-    x: torch.Tensor            # float32 solution (n,) or (n, L)
+    x: torch.Tensor            # solution (n,) or (n, L): float64 from
+                               # the float64 refinements, else float32
     refinements: int           # outer iterations executed
-    inner_iterations: int      # total bf16-operator CG iterations
-    residual: torch.Tensor     # exact float32 relative residual(s)
+    inner_iterations: int      # total inner CG iterations
+    residual: torch.Tensor     # relative residual(s) on the accurate
+                               # operator (float64, or float32)
 
 
 @dataclasses.dataclass
@@ -156,15 +168,65 @@ def cg_solve_multi_refined_f32(A16, A32, B: torch.Tensor,
                         inner_max_iters, max_refinements)
 
 
-def cg_solve_refined(*args, **kwargs):
-    """float64 refinement: needs float64 plans (ROADMAP A9)."""
-    raise NotImplementedError(
-        "cg_solve_refined: float64 refinement needs float64 plans "
-        "(kernels B7-B11), ROADMAP A9")
+def _solve_refined(A32, A_acc, b, multi, tolerance, inner_tolerance,
+                   inner_max_iters, max_refinements) -> RefineResult:
+    """The JAX package's ``_solve_refined``: ``rel`` is taken from the
+    residual before each step's correction, the loop leaves only when
+    it is below ``tolerance`` after at least two steps, and the
+    returned residual is recomputed after the last correction."""
+    if plan_semantics(A_acc) != "ieee-f64":
+        raise TypeError("the residual operator A_acc must be a float64 "
+                        f"plan, got {plan_semantics(A_acc)}")
+    if plan_semantics(A32) != "f32":
+        raise TypeError("the inner operator A32 must be a float32 plan, "
+                        f"got {plan_semantics(A32)}")
+    dot = dot_multiple if multi else dot_single
+    mv = spmm if multi else spmv
+    b = b.to(torch.float64)
+    bn = torch.sqrt(dot(b, b))
+    bn = torch.where(bn == 0, torch.ones_like(bn), bn)
+    x = torch.zeros_like(b)
+    refinements = inner = 0
+    for k in range(max_refinements):
+        r = b - mv(A_acc, x)
+        r32 = r.to(torch.float32)
+        if multi:
+            res = cg_solve_multi(A32, r32, inner_max_iters, inner_tolerance,
+                                 record_history=False)
+        else:
+            res = cg_solve(A32, r32, inner_max_iters, inner_tolerance)
+        x = x + res.x.to(torch.float64)
+        inner += res.iterations
+        refinements = k + 1
+        rel = torch.sqrt(dot(r, r)) / bn
+        if float(torch.max(rel)) < tolerance and k > 0:
+            break
+    r = b - mv(A_acc, x)
+    return RefineResult(x=x, refinements=refinements, inner_iterations=inner,
+                        residual=torch.sqrt(dot(r, r)) / bn)
 
 
-def cg_solve_multi_refined(*args, **kwargs):
-    """Blocked float64 refinement: needs float64 plans (ROADMAP A9)."""
-    raise NotImplementedError(
-        "cg_solve_multi_refined: float64 refinement needs float64 plans "
-        "(kernels B7-B11), ROADMAP A9")
+def cg_solve_refined(A32, A_acc, b: torch.Tensor, tolerance: float = 1e-12,
+                     inner_tolerance: float = 1e-7,
+                     inner_max_iters: int = 10000,
+                     max_refinements: int = 8) -> RefineResult:
+    """Single-RHS float64 solve by refinement: inner CG on the float32
+    plan ``A32`` to ``inner_tolerance``, float64 residuals on the
+    float64 plan ``A_acc`` (``plan_matrix(csr, dtype=np.float64)``),
+    ``x`` updated in float64. At least two refinements run."""
+    return _solve_refined(A32, A_acc, b, False, tolerance, inner_tolerance,
+                          inner_max_iters, max_refinements)
+
+
+def cg_solve_multi_refined(A32, A_acc, B: torch.Tensor,
+                           tolerance: float = 1e-12,
+                           inner_tolerance: float = 1e-7,
+                           inner_max_iters: int = 10000,
+                           max_refinements: int = 8) -> RefineResult:
+    """Blocked multi-RHS variant of :func:`cg_solve_refined`: B is
+    (n, L), the inner solve is ``cg_solve_multi``, and the loop ends on
+    the largest lane's residual."""
+    if B.dim() != 2:
+        raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
+    return _solve_refined(A32, A_acc, B, True, tolerance, inner_tolerance,
+                          inner_max_iters, max_refinements)

@@ -1,22 +1,35 @@
 """Carrying a JAX plan's state across to the port.
 
-``plan_from_arrays(kind, arrays, device)`` turns the arrays of a
-``tpusparse`` plan, taken out as numpy (``np.asarray``), into the
-port's plan, so that both packages can run on the same operand:
+``plan_from_arrays(kind, arrays, device, dtype=None)`` turns the arrays
+of a ``tpusparse`` plan, taken out as numpy (``np.asarray``), into the
+port's plan, so that both packages can run on the same operand.
+``dtype`` (float32 or float64) is the value type of the port's plan; by
+default a double-float kind gives float64, a plane kind keeps its
+planes' type, and every other kind gives float32 (the JAX plans' own
+type; a JAX host CSR holds float64 values even for a float32 plan):
 
   * ``"dia_masked"`` — a ``DiaStreamDevice`` in masked form:
     ``mask_b`` ((nb, R, 128) int32 blocks; the words past ``num_rows``
     are the zero pad and are dropped), ``offsets``, ``vals`` and
     ``shape``;
-  * ``"dia"`` — a value-plane ``DiaDevice`` (K5) from a JAX
-    ``DiaDevice``: ``data`` (K, num_rows), ``offsets`` and ``shape``;
+  * ``"dia_masked_df"`` — the same from the masked form of a JAX
+    double-float ``DiaStreamDFDevice``: ``mask_b``, ``offsets``,
+    ``vals_hi``, ``vals_lo`` and ``shape``; each coefficient is
+    ``vals_hi + vals_lo`` summed in float64;
+  * ``"dia"`` — a value-plane ``DiaDevice`` (K5, K5d) from a JAX
+    ``DiaDevice``: ``data`` (K, num_rows; float32 or float64),
+    ``offsets`` and ``shape``;
   * ``"dia_planes"`` — a ``DiaDevice`` from the value-plane form of a
     JAX ``DiaStreamDevice``: ``data_b`` ((nb, K, R, 128), float32 or
     bf16), unblocked to (K, num_rows) as the JAX package does
     (``ops/dia.py:172-174``; the entries past ``num_rows`` are the zero
     pad and are dropped), ``offsets`` and ``shape``;
+  * ``"dia_df"`` — a float64 ``DiaDevice`` from the value-plane form of
+    a JAX ``DiaStreamDFDevice``: ``data_hi`` and ``data_lo`` (blocked
+    as ``data_b``), summed in float64, ``offsets`` and ``shape``;
   * ``"csr"`` — a merge plan from ``row_offsets``, ``col_indices``,
-    ``values`` and ``shape``;
+    ``values`` and ``shape`` (with float64 values, the host CSR a JAX
+    double-float merge plan was built from);
   * ``"row_split"`` — a row-split plan (K4) from the same CSR arrays;
   * ``"ell"`` — a row-split plan rebuilt from a JAX ``DeviceEll``'s
     gather-job tiles: ``vals`` and ``local_cols`` (ntiles, J, 128),
@@ -26,6 +39,10 @@ port's plan, so that both packages can run on the same operand:
     lane]``; entries are sorted by (row, column). A pad slot and an
     explicit zero both read 0 and are dropped alike, so the rebuilt CSR
     equals the original only for a matrix with no explicit zeros.
+
+A double-float pair holds ``hi = f32(a)`` and ``lo = f32(a - hi)``, so
+the float64 sum ``hi + lo`` of the two ``_df`` kinds is within 2^-48
+relative of the original float64 value ``a``, not always equal to it.
 """
 
 from __future__ import annotations
@@ -33,48 +50,63 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpusparse_torch.formats.csr import CsrMatrix
-from tpusparse_torch.formats.dia import DiaDevice
+from tpusparse_torch.formats.csr import CsrMatrix, value_dtype
+from tpusparse_torch.formats.dia import PLANE_DTYPES, DiaDevice
 from tpusparse_torch.kernels.dia_stream import from_mask_words
 from tpusparse_torch.kernels.ell_spmm import to_device_row_split
 from tpusparse_torch.kernels.merge_spmv import to_device_merge
 
 LANES = 128  # rows per row block and columns per column block of ELL
+KINDS = ("dia_masked", "dia_masked_df", "dia", "dia_planes", "dia_df",
+         "csr", "row_split", "ell")
 
 
-def plan_from_arrays(kind: str, arrays: dict, device):
+def plan_from_arrays(kind: str, arrays: dict, device, dtype=None):
+    if kind not in KINDS:
+        raise ValueError(f"unknown plan kind {kind!r} ({', '.join(KINDS)})")
     n_rows, n_cols = (int(s) for s in arrays["shape"])
-    if kind == "dia_masked":
+    if kind in ("dia", "dia_planes", "dia_df"):
+        D = _dia_of_planes(kind, arrays, n_rows, n_cols, device)
+        if dtype is not None:
+            D.data = D.data.to(value_dtype(dtype))
+        return D
+    if dtype is None:
+        dtype = torch.float64 if kind.endswith("_df") else torch.float32
+    if kind in ("dia_masked", "dia_masked_df"):
         words = np.asarray(arrays["mask_b"]).reshape(-1)
         if np.any(words[n_rows:] != 0):
             raise ValueError("mask words past num_rows must be the zero pad")
-        return from_mask_words(n_rows, n_cols, arrays["offsets"],
-                               arrays["vals"], words[:n_rows], device)
-    if kind in ("dia", "dia_planes"):
-        return _dia_of_planes(kind, arrays, n_rows, n_cols, device)
-    if kind in ("csr", "row_split"):
+        if kind == "dia_masked_df":
+            vals = (np.asarray(arrays["vals_hi"], dtype=np.float64)
+                    + np.asarray(arrays["vals_lo"], dtype=np.float64))
+        else:
+            vals = arrays["vals"]
+        return from_mask_words(n_rows, n_cols, arrays["offsets"], vals,
+                               words[:n_rows], device, dtype)
+    if kind == "ell":
+        csr = _csr_of_ell(arrays, n_rows, n_cols)
+    else:
         csr = CsrMatrix(n_rows, n_cols, np.asarray(arrays["row_offsets"]),
                         np.asarray(arrays["col_indices"]),
                         np.asarray(arrays["values"]))
-        if kind == "csr":
-            return to_device_merge(csr, device)
-        return to_device_row_split(csr, device)
-    if kind == "ell":
-        return to_device_row_split(_csr_of_ell(arrays, n_rows, n_cols),
-                                   device)
-    raise ValueError(
-        f"unknown plan kind {kind!r} (dia_masked, dia, dia_planes, csr, "
-        "row_split, ell)")
+    if kind == "csr":
+        return to_device_merge(csr, device, dtype)
+    return to_device_row_split(csr, device, dtype)
 
 
 def _dia_of_planes(kind, arrays, n_rows, n_cols, device) -> DiaDevice:
-    """A ``DiaDevice`` from (K, n) planes or (nb, K, R, 128) blocks;
-    float32 planes stay float32 and bf16 planes bf16, bit for bit."""
+    """A ``DiaDevice`` from (K, n) planes or (nb, K, R, 128) blocks:
+    float32, bf16 and float64 planes keep their type bit for bit; a
+    double-float pair of blocks becomes float64 planes ``hi + lo``."""
     offsets = tuple(int(o) for o in arrays["offsets"])
     if kind == "dia":
         data = _planes_tensor(arrays["data"])
     else:
-        blocks = _planes_tensor(arrays["data_b"])
+        if kind == "dia_df":
+            blocks = (_planes_tensor(arrays["data_hi"]).double()
+                      + _planes_tensor(arrays["data_lo"]).double())
+        else:
+            blocks = _planes_tensor(arrays["data_b"])
         planes = blocks.permute(1, 0, 2, 3).reshape(len(offsets), -1)
         if torch.any(planes[:, n_rows:] != 0):
             raise ValueError("plane entries past num_rows must be the zero "
@@ -83,8 +115,9 @@ def _dia_of_planes(kind, arrays, n_rows, n_cols, device) -> DiaDevice:
     if data.shape != (len(offsets), n_rows):
         raise ValueError(f"planes of shape {tuple(data.shape)} for "
                          f"{len(offsets)} offsets and {n_rows} rows")
-    if data.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"planes are float32 or bf16, got {data.dtype}")
+    if data.dtype not in PLANE_DTYPES:
+        raise TypeError(f"planes are float32, bf16 or float64, got "
+                        f"{data.dtype}")
     return DiaDevice(n_rows, n_cols, offsets, data.contiguous().to(device))
 
 
