@@ -18,7 +18,14 @@ and exits non-zero on any failure:
     -> ``spmv`` / ``cg_solve`` / ``cg_solve_refined`` (K1d, K2d and K5d,
     the float64 twins of K1, K2 and K5, with float32 inner solves);
   * float64 at L = 16: ``spmm`` / ``cg_solve_multi_refined`` (K1d, K3d,
-    K4d).
+    K4d);
+  * reordering: ``plan_matrix(csr, reorder='auto')`` -> a
+    ``ReorderedPlan`` -> ``spmv`` / ``cg_solve`` / ``cg_solve_multi``
+    (K6 permutes in and out; K2, K3 on the inner plan);
+  * the preconditioned solvers on reordered plans: ``ic0_factorize`` /
+    ``spai_inverse`` on the permuted matrix -> ``pcg_solve_multi`` (Jacobi
+    and exact IC(0)) / ``spai_cg_solve_multi``, in float32 and float64
+    (K6, K3, K3d).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -40,7 +47,11 @@ Phases, each printed on its own lines:
       lap3d-48 and K5d on K5's fixtures bitwise equal to their plain
       versions, K2d, K3d and K4d on K2's fixtures within
       2(nnz_i + 2)u|A||x| of theirs and bitwise repeatable, all five
-      within that bound of an independent float64 product;
+      within that bound of an independent float64 product; K6 bitwise
+      equal to ``index_select`` in float32 and float64 at L = 1, 3 and
+      16, n = 0, 1, 1023 and 4,096,000, on the identity, a reversal, a
+      seeded random permutation and the RCM permutation of scrambled
+      lap3d-160;
   [3] the single-RHS slice at the bench fixture lap3d-48: AUTO must give
       a masked DIA plan; SpMV times (CUDA events per call as made, and
       device time from CUDA-graph replay) beside the plain versions', the
@@ -82,16 +93,43 @@ Phases, each printed on its own lines:
  [11] float64 at L = 16: ``spmm`` on lap3d-160 AUTO (K1d on (L, n)),
       on rmat-18-ef16 ``'merge'`` (K3d) and ``'row_split'`` (K4d);
       ``cg_solve_multi_refined`` on lap3d-160 to 1e-12 on every lane;
+  [12] the reordered path: lap3d-160 scrambled by a symmetric permutation
+      from ``default_rng(5)``; ``reorder='auto'`` must plan RCM;
+      ``spmv`` through the ``ReorderedPlan`` against float64, timed
+      beside the scrambled matrix's own AUTO plan and ``torch.sparse``;
+      K6 alone at L = 1 and 16 beside ``index_select`` and its bound;
+      ``cg_solve`` and ``cg_solve_multi`` (L = 16) within one iteration
+      of the unscrambled solves of [4] and [7] on the same (permuted)
+      right-hand sides; K6 (bitwise) and the inner plan's K2 and K3
+      (within 2(nnz_i + 2)u|A||x|) against their plain versions on the
+      phase's own operands;
+ [13] the preconditioned solvers in the ``cpu_multicg`` layout, with
+      ``reorder='auto'`` and tol 1e-5, each given the ``ReorderedPlan``
+      (B in and X out through K6) and a preconditioner built from
+      ``A.permuted(csr)``: (a) scrambled lap3d-128, float32, L = 16: CG
+      and Jacobi IC(0)-PCG, the C++ factorization's time and depth; (b)
+      scrambled lap3d-64: SPAI-CG (build time), exact and Jacobi
+      IC(0)-PCG (ms per application), CG; (c) ``make_fem2d(30000,
+      seed=1)`` in float64, L = 1: CG and Jacobi IC(0)-PCG; every lane
+      converged with a float64 true residual < 1e-4. Exact IC(0)-PCG
+      there runs ``EXACT_FEM_ITERS`` iterations (the whole solve would
+      not fit the time limit; (b) takes it to tol): its ms/iteration,
+      and its float64 true residual held to its recurrence's. Every
+      kernel of the phase is held against its plain version on the
+      phase's own operands: K6 on B, K3 and K3d on the inner plans, the
+      Jacobi sweeps' strict triangles and SPAI's M;
   [5] launch counts of each main path, counted from 0 just before it
-      ([3]-[4], [6]-[7], [8], [9], [10] and [11]) and read just after:
-      K1 and K2 must have run on the first, K1, K3 and K4 on the
-      second, K5 on the third and the fourth, K1d, K2d and K5d on the
-      fifth, K1d, K3d and K4d on the sixth.
+      ([3]-[4], [6]-[7], [8], [9], [10], [11], [12] and [13]) and read
+      just after: K1 and K2 must have run on the first, K1, K3 and K4 on
+      the second, K5 on the third and the fourth, K1d, K2d and K5d on
+      the fifth, K1d, K3d and K4d on the sixth, K6, K2 and K3 on the
+      seventh, K6, K3 and K3d on the eighth.
 
 The last two lines are a JSON object of the kernels and the result
 line ``{"ok": true, "device": {...}}``. The port imports no JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -814,6 +852,426 @@ def run_refined_multi(tag, A32, A64, C64, B):
           f"{true_res.max():.3e}, {ms:.1f} ms (first solve {first:.1f} ms)")
 
 
+def scrambled(csr, seed):
+    """(``csr`` under a symmetric permutation from ``default_rng(seed)``,
+    the permutation): a banded matrix hidden behind a scattered
+    pattern."""
+    from tpusparse_torch.ops.reorder import permute_symmetric
+
+    p = np.random.default_rng(seed).permutation(csr.num_rows)
+    return permute_symmetric(csr, p), p
+
+
+def bandwidths(csr, A):
+    """(bandwidth of ``csr``, bandwidth under the plan's permutation)."""
+    from tpusparse_torch.ops.reorder import bandwidth
+
+    return bandwidth(csr), bandwidth(csr, A.perm.cpu().numpy())
+
+
+def launch_counters():
+    """name -> (module, attribute) of every kernel's launch count."""
+    from tpusparse_torch.kernels import (
+        dia_stream,
+        ell_spmm,
+        merge_spmv,
+        permute,
+        spmm_merge,
+    )
+
+    return {"K1": (dia_stream, "LAUNCHES"), "K2": (merge_spmv, "LAUNCHES"),
+            "K3": (spmm_merge, "LAUNCHES"), "K4": (ell_spmm, "LAUNCHES"),
+            "K5": (dia_stream, "PLANES_LAUNCHES"),
+            "K1d": (dia_stream, "LAUNCHES_F64"),
+            "K2d": (merge_spmv, "LAUNCHES_F64"),
+            "K3d": (spmm_merge, "LAUNCHES_F64"),
+            "K4d": (ell_spmm, "LAUNCHES_F64"),
+            "K5d": (dia_stream, "PLANES_LAUNCHES_F64"),
+            "K6": (permute, "LAUNCHES")}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (a kernel held against its plain version, or
+    timed alone) leave the main path's launch counts as they were."""
+    counters = launch_counters()
+    saved = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+    try:
+        yield
+    finally:
+        for k, (m, attr) in counters.items():
+            setattr(m, attr, saved[k])
+
+
+def merge_vs_plain(phase, tag, P, X):
+    """A merge plan of a main path against its plain version on that
+    path's operands: ``spmv`` (K2 or K2d) for a vector X, ``spmm`` (K3 or
+    K3d) for an (n, L) block, each within 2(nnz_i + 2)u|A||X| of the
+    plain version and of a float64 CSR product (u of the plan's type).
+    Not counted."""
+    from tpusparse_torch import spmm, spmv
+    from tpusparse_torch.kernels import merge_spmv, spmm_merge
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    check(isinstance(P, merge_spmv.MergeDevice), f"{tag}: a merge plan")
+    fp64 = P.values.dtype == torch.float64
+    with uncounted():
+        if X.dim() == 1:
+            kernel = "K2"
+            Y = spmv(P, X)[:, None]
+            Yp = merge_spmv.spmv_merge_plain(P, X)[:, None]
+            X = X[:, None]
+        else:
+            kernel = "K3"
+            Y, Yp = spmm(P, X), spmm_merge.spmm_merge_plain(P, X)
+    kernel += "d" if fp64 else ""
+    args = (P.num_rows, P.row_offsets, P.col_indices)
+    Y64 = csr_matmat(*args, P.values.double(), X.double())
+    AX = csr_matmat(*args, P.values.abs().double(), X.abs().double())
+    nnz_i = (P.row_offsets[1:] - P.row_offsets[:-1]).double()[:, None]
+    bound = 2 * (nnz_i + 2) * (U64 if fp64 else U) * AX
+    what = f"{tag} {kernel} L={X.shape[1]}"
+    check(Y.shape == (P.num_rows, X.shape[1]) and Y.dtype == X.dtype
+          and torch.isfinite(Y).all(), f"{what}: finite Y of X's type")
+    err = (Y - Yp).abs()
+    check((err <= bound).all(), f"{what}: within 2(nnz_i+2)u|A||X| of plain")
+    check(((Y.double() - Y64).abs() <= bound).all(),
+          f"{what}: within 2(nnz_i+2)u|A||X| of a float64 CSR product")
+    print(f"[{phase}] {what} ({P.num_rows} rows, {P.nnz} nnz): max|"
+          f"{kernel}-plain| {float(err.max()):.3e}, within 2(nnz_i+2)u|A||X|"
+          f" of plain and of float64", flush=True)
+
+
+def k6_vs_plain(phase, tag, A, B):
+    """K6 of a reordered plan on a main path's operand: ``apply_perm``
+    and ``apply_inv`` bitwise equal to ``index_select``, and the round
+    trip equal to B. Not counted. Returns B in the plan's order."""
+    from tpusparse_torch.kernels import permute
+
+    with uncounted():
+        Bp = A.apply_perm(B)
+        Bq = A.apply_inv(Bp)
+    what = f"{tag} K6 {str(B.dtype)[6:]} {tuple(B.shape)}"
+    check(torch.equal(Bp, permute.permute_plain(A.perm, B)),
+          f"{what}: apply_perm bitwise equal to index_select")
+    check(torch.equal(Bq, permute.permute_plain(A.inv_perm, Bp))
+          and torch.equal(Bq, B), f"{what}: apply_inv bitwise equal to "
+          "index_select, round trip exact")
+    print(f"[{phase}] {what}: apply_perm and apply_inv bitwise equal to "
+          f"index_select, round trip exact", flush=True)
+    return Bp
+
+
+def randn(seed, shape, dtype):
+    """Normal samples made on the card from a seeded generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+
+
+def k6_checks(rcm_perm):
+    """[2] K6 against its plain version (``index_select``), bitwise, in
+    float32 and float64 at L = 1 (a vector), 3 and 16: n = 0, 1 and 1023
+    with the identity, a reversal and a seeded random permutation, and
+    n = len(rcm_perm) (lap3d-160) with the same three and the RCM
+    permutation of scrambled lap3d-160."""
+    from tpusparse_torch.kernels import permute
+
+    nb = len(rcm_perm)
+    perms = []
+    for n in (0, 1, 1023, nb):
+        perms += [(n, "identity", np.arange(n)),
+                  (n, "reversal", np.arange(n)[::-1].copy()),
+                  (n, "random", np.random.default_rng(200 + n).permutation(n))]
+    perms.append((nb, "RCM of scrambled lap3d-160", rcm_perm))
+    plans = [(n, what, permute.build_permute_plan(p, "cuda"))
+             for n, what, p in perms]
+    for dtype in (torch.float32, torch.float64):
+        for L in (1, 3, 16):
+            X = {n: randn(210 + L, (n,) if L == 1 else (n, L), dtype)
+                 for n in (0, 1, 1023, nb)}
+            for n, what, p in plans:
+                Y = permute.permute_apply(p, X[n])
+                what = f"K6 n={n} {what} {str(dtype)[6:]} L={L}"
+                check(Y.shape == X[n].shape and Y.dtype == dtype,
+                      f"{what}: shape and type")
+                check(torch.equal(Y, permute.permute_plain(p, X[n])),
+                      f"{what}: bitwise equal to index_select")
+            del X
+    for n, what, _ in plans:
+        print(f"[2] K6 n={n} {what}: bitwise equal to index_select in "
+              f"float32 and float64 at L = 1, 3 and 16")
+    return 0.0
+
+
+def k6_times(phase, tag, perm, L):
+    """K6 alone on the permutation of a reordered plan, float32 X (n,) at
+    L = 1 or (n, L): device and per-call times beside the plain version
+    (``index_select``, also the one library call that computes it) and
+    the byte bound. Not counted."""
+    from tpusparse_torch.bench.models import bound_ms, permute_bytes
+    from tpusparse_torch.bench.timing import cuda_time_ms
+    from tpusparse_torch.kernels import permute
+
+    n = perm.shape[0]
+    X = randn(300 + L, (n,) if L == 1 else (n, L), torch.float32)
+    with uncounted():
+        check(torch.equal(permute.permute_apply(perm, X),
+                          permute.permute_plain(perm, X)),
+              f"{tag} K6 L={L}: bitwise equal to index_select")
+        t = time_pair(lambda: permute.permute_apply(perm, X),
+                      lambda: permute.permute_plain(perm, X))
+    t["library"] = cuda_time_ms(lambda: X.index_select(0, perm))
+    nbytes = permute_bytes(n, L)
+    t["bound"] = bound_ms(0.0, nbytes)
+    (kev, kdev), (pev, pdev) = t["kernel"], t["plain"]
+    print(f"[{phase}] {tag} K6 L={L}: kernel {kev:.4f} ms/call, device "
+          f"{kdev:.4f} ms ({nbytes / kdev * 1e-6:.1f} GB/s of "
+          f"{nbytes / 1e6:.1f} MB); plain (index_select) {pev:.4f} ms/call, "
+          f"device {pdev:.4f} ms; bound {t['bound'][0]:.4f} ms (bytes)")
+    return t
+
+
+def true_residuals(C, B, X):
+    """Per-lane float64 ||B - A X|| / ||B|| on the CSR ``C`` on the card."""
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    B64 = B.double()
+    R = B64 - csr_matmat(C.num_rows, C.row_offsets, C.col_indices,
+                         C.values.double(), X.double())
+    return (torch.linalg.norm(R, dim=0) / torch.linalg.norm(B64, dim=0)
+            ).cpu().numpy()
+
+
+def multicg(tag, solver, prep_ms, solve, C, B, twice=True):
+    """One solver of the ``cpu_multicg`` comparison: ``solve()`` returns
+    (result, X in the original order); run twice (the second timed) or
+    once; every lane converged with a float64 true residual < 1e-4 on
+    ``C``. Prints iterations, set-up and solve times and ms/iteration;
+    returns (iterations, ms/iteration, largest true residual)."""
+    walls = []
+    for _ in range(2 if twice else 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, X = solve()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ms = walls[-1]
+    tr = true_residuals(C, B, X)
+    check(X.shape == B.shape and torch.isfinite(X).all(),
+          f"{tag} {solver}: finite X of B's shape")
+    check(bool(res.converged.all()), f"{tag} {solver}: every lane converged")
+    check((tr < TRUE_RESIDUAL_MAX).all(),
+          f"{tag} {solver}: float64 true residuals {tr}")
+    per = ms / max(res.iterations, 1)
+    print(f"[13] {tag} {solver}: {res.iterations} iters, prep {prep_ms:.1f} "
+          f"ms, solve {ms:.1f} ms ({per:.4f} ms/iteration), converged=True, "
+          f"float64 true residual max {tr.max():.3e}", flush=True)
+    return res.iterations, per, float(tr.max())
+
+
+def timed(fn):
+    """(fn(), milliseconds) with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+FEM_MAX_ITERS = 40000    # plain CG on fem2d-30000 takes about 23,000
+# exact IC(0)-PCG on fem2d-30000 runs a fixed budget: each application is
+# an eager loop over 2 x 323 dependency levels (50-86 ms an iteration), so
+# the whole solve (some 9,000 iterations) would not fit the run's time
+# limit; (b) takes exact IC(0)-PCG to the tolerance
+EXACT_FEM_ITERS = 300
+
+
+def preconditioned_phase(gen, reset_counts, read_counts):
+    """[13] The ``cpu_multicg`` comparison with ``reorder='auto'`` at tol
+    1e-5, each solver given the ``ReorderedPlan`` (B in and X out through
+    K6) and a preconditioner built from ``A.permuted(csr)``:
+    (a) scrambled lap3d-128, float32, L = 16: CG, and PCG with Jacobi
+        IC(0) (two sweeps); the C++ factorization's time and depth;
+    (b) scrambled lap3d-64, float32, L = 16: SPAI-CG with its build time
+        (host structure, batched QR on the card), exact IC(0)-PCG (level
+        scheduled) and Jacobi IC(0)-PCG with ms per application, and CG;
+    (c) fem2d-30000 in float64, L = 1: CG and Jacobi IC(0)-PCG to tol,
+        each run once; exact IC(0)-PCG for ``EXACT_FEM_ITERS``
+        iterations, its float64 true residual held to its recurrence.
+    Every kernel of the phase is held against its plain version on the
+    phase's own operands (not counted): K6 on B, K3 (K3d) on the inner
+    plan, on the Jacobi sweeps' strict triangles and on SPAI's M.
+    Returns the launch counts of the phase."""
+    from tpusparse_torch import (
+        cg_solve_multi,
+        ic0_factorize,
+        make_exact_ic0_preconditioner,
+        make_ic0_preconditioner,
+        pcg_solve_multi,
+        plan_kind,
+        plan_matrix,
+        spai_cg_solve_multi,
+        spai_inverse,
+    )
+    from tpusparse_torch.precond import spai
+    from tpusparse_torch.precond.trisolve import _dependency_levels
+
+    def factor(tag, csr_p):
+        Lf, ms = timed(lambda: ic0_factorize(csr_p))
+        nlev = int(_dependency_levels(Lf.row_offsets, Lf.col_indices,
+                                      Lf.num_rows, True).max()) + 1
+        print(f"[13] {tag} IC(0): {Lf.nnz} factor entries, C++ host "
+              f"factorization {ms:.1f} ms, {nlev} dependency levels",
+              flush=True)
+        return Lf, ms
+
+    def jacobi(tag, Lf, L, dtype, seed):
+        """Jacobi IC(0), its strict triangles held against their plain
+        versions at the solve's shape."""
+        prec, ms = timed(lambda: make_ic0_preconditioner(
+            Lf, 2, num_rhs=L, dtype=dtype, device="cuda"))
+        tdt = torch.float64 if dtype == np.float64 else torch.float32
+        for side, solver in (("lower", prec.fwd), ("upper", prec.bwd)):
+            merge_vs_plain(13, f"{tag} Jacobi {side} strict triangle",
+                           solver.strict, randn(seed, (Lf.num_rows, L), tdt))
+        return prec, ms
+
+    last = {}
+
+    def solve(solver, *args, **kw):
+        def run():
+            last["res"] = solver(*args, **kw)
+            return last["res"], last["res"].x
+        return run
+
+    def setup(tag, csr, dtype, L, B):
+        A, ms = timed(lambda: plan_matrix(csr, "auto", dtype=dtype,
+                                          reorder="auto", L=L,
+                                          device="cuda"))
+        check(getattr(A, "order", None) == "rcm",
+              f"{tag}: reorder='auto' plans RCM")
+        bw0, bw1 = bandwidths(csr, A)
+        csr_p, p_ms = timed(lambda: A.permuted(csr))
+        print(f"[13] {tag} ({csr.num_rows} rows, {csr.nnz} nnz): "
+              f"{plan_kind(A)} planned in {ms:.1f} ms, bandwidth {bw0} -> "
+              f"{bw1}; the host matrix in the plan's order "
+              f"(A.permuted) in {p_ms:.1f} ms", flush=True)
+        merge_vs_plain(13, f"{tag} inner", A.inner,
+                       k6_vs_plain(13, tag, A, B))
+        return A, ms, csr_p
+
+    reset_counts()
+    out = {}
+    # (a)
+    tag = "lap3d-128 scrambled float32"
+    csr, _ = scrambled(gen.make_laplacian_grid3d(128).to_csr(), 5)
+    B = rand(500, (csr.num_rows, L_MULTI))
+    A, plan_ms, csr_p = setup(tag, csr, np.float32, L_MULTI, B)
+    C = csr.to("cuda")
+    out["a", "cg"] = multicg(tag, "cg", plan_ms, solve(cg_solve_multi, A, B),
+                             C, B)
+    Lf, f_ms = factor(tag, csr_p)
+    prec, p_ms = jacobi(tag, Lf, L_MULTI, np.float32, 501)
+    out["a", "pcg"] = multicg(tag, "pcg_ic0 (2 Jacobi sweeps)", f_ms + p_ms,
+                              solve(pcg_solve_multi, A, B, prec), C, B)
+    del A, csr, csr_p, C, B, Lf, prec
+    torch.cuda.empty_cache()
+    # (b)
+    tag = "lap3d-64 scrambled float32"
+    csr, _ = scrambled(gen.make_laplacian_grid3d(64).to_csr(), 5)
+    B = rand(510, (csr.num_rows, L_MULTI))
+    A, plan_ms, csr_p = setup(tag, csr, np.float32, L_MULTI, B)
+    C = csr.to("cuda")
+    _, struct_ms = timed(lambda: spai._structure(csr_p))
+    lstsq, qr = spai._batched_lstsq, []
+
+    def timed_lstsq(A_b, e_b):
+        out, ms = timed(lambda: lstsq(A_b, e_b))
+        qr.append((A_b.shape, ms))
+        return out
+
+    spai._batched_lstsq = timed_lstsq
+    try:
+        M, spai_ms = timed(lambda: spai_inverse(csr_p))
+    finally:
+        spai._batched_lstsq = lstsq
+    Mp, mp_ms = timed(lambda: plan_matrix(M, "auto", L=L_MULTI,
+                                          device="cuda"))
+    print(f"[13] {tag} SPAI: {M.nnz} entries, spai_inverse {spai_ms:.1f} ms "
+          f"(host structure alone {struct_ms:.1f} ms; batched QR least "
+          f"squares on the card {sum(ms for _, ms in qr):.1f} ms over "
+          f"buckets {', '.join(f'{tuple(s)} {ms:.1f} ms' for s, ms in qr)}; "
+          f"the rest is the host bucket fill and copies), plan "
+          f"{plan_kind(Mp)} {mp_ms:.1f} ms", flush=True)
+    merge_vs_plain(13, f"{tag} SPAI M", Mp, rand(511, (M.num_rows, L_MULTI)))
+    out["b", "cg"] = multicg(tag, "cg", plan_ms, solve(cg_solve_multi, A, B),
+                             C, B)
+    out["b", "spai"] = multicg(tag, "spai_cg", spai_ms + mp_ms,
+                               solve(spai_cg_solve_multi, A, Mp, B), C, B)
+    Lf, f_ms = factor(tag, csr_p)
+    precs = {}
+    Bp = A.apply_perm(B)
+    for name, make in (("exact IC(0), level-scheduled",
+                        lambda: timed(lambda: make_exact_ic0_preconditioner(
+                            Lf))),
+                       ("Jacobi IC(0), 2 sweeps",
+                        lambda: jacobi(tag, Lf, L_MULTI, np.float32, 512))):
+        prec, p_ms = make()
+        app = min(timed(lambda: prec(Bp))[1] for _ in range(3))
+        print(f"[13] {tag} {name}: built in {p_ms:.1f} ms, {app:.3f} ms per "
+              f"application at L={L_MULTI}", flush=True)
+        precs[name] = (prec, f_ms + p_ms, app)
+    for key, name in (("pcg_exact", "exact IC(0), level-scheduled"),
+                      ("pcg", "Jacobi IC(0), 2 sweeps")):
+        prec, prep, app = precs[name]
+        out["b", key] = multicg(tag, f"pcg_ic0 ({name})", prep,
+                                solve(pcg_solve_multi, A, B, prec),
+                                C, B) + (app,)
+    del A, csr, csr_p, C, B, Bp, Lf, precs, M, Mp
+    torch.cuda.empty_cache()
+    # (c) the fem2d-30000 float64 acceptance
+    tag = "fem2d-30000 float64"
+    csr = gen.make_fem2d(30000, seed=1).to_csr()
+    B = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (csr.num_rows, 1))).cuda()
+    A, plan_ms, csr_p = setup(tag, csr, np.float64, 1, B)
+    C = csr.to("cuda", torch.float64)
+    out["c", "cg"] = multicg(tag, "cg", plan_ms, solve(
+        cg_solve_multi, A, B, max_iters=FEM_MAX_ITERS), C, B, False)
+    Lf, f_ms = factor(tag, csr_p)
+    prec, p_ms = jacobi(tag, Lf, 1, np.float64, 520)
+    out["c", "pcg"] = multicg(tag, "pcg_ic0 (Jacobi IC(0), 2 sweeps)",
+                              f_ms + p_ms, solve(
+                                  pcg_solve_multi, A, B, prec,
+                                  max_iters=FEM_MAX_ITERS), C, B, False)
+    jrel = float(last["res"].history[EXACT_FEM_ITERS - 1])
+    name = "pcg_ic0 (exact IC(0), level-scheduled)"
+    prec, p_ms = timed(lambda: make_exact_ic0_preconditioner(Lf))
+    Bp = A.apply_perm(B)
+    app = min(timed(lambda: prec(Bp))[1] for _ in range(3))
+    print(f"[13] {tag} exact IC(0), level-scheduled: built in {p_ms:.1f} ms, "
+          f"{app:.3f} ms per application at L=1", flush=True)
+    (res, X), ms = timed(solve(pcg_solve_multi, A, B, prec,
+                               max_iters=EXACT_FEM_ITERS))
+    rel = float(res.residual.max())
+    tr = float(true_residuals(C, B, X).max())
+    check(res.iterations == EXACT_FEM_ITERS and X.shape == B.shape
+          and torch.isfinite(X).all()
+          and bool(torch.isfinite(res.history).all()),
+          f"{tag} {name}: {EXACT_FEM_ITERS} finite iterations")
+    check(rel < 1 and abs(tr - rel) <= 1e-4 * rel,
+          f"{tag} {name}: float64 true residual {tr} within 1e-4 of the "
+          f"recurrence's {rel}")
+    per = ms / EXACT_FEM_ITERS
+    print(f"[13] {tag} {name}: {EXACT_FEM_ITERS} iterations of a fixed "
+          f"budget, solve {ms:.1f} ms ({per:.4f} ms/iteration), relative "
+          f"residual {rel:.3e}, float64 true residual {tr:.3e} (Jacobi "
+          f"IC(0) at the same iteration {jrel:.3e})", flush=True)
+    out["c", "pcg_exact (budget)"] = (EXACT_FEM_ITERS, per, tr)
+    print("[13] iterations: " + ", ".join(
+        f"({k[0]}) {k[1]} {v[0]}" for k, v in out.items()))
+    return read_counts("preconditioned path", ("K6", "K3", "K3d"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -821,14 +1279,9 @@ def main() -> int:
     from tpusparse_torch import CsrMatrix, plan_kind, plan_matrix
     from tpusparse_torch.io import generators as gen
     from tpusparse_torch.io.market import read_market
-    from tpusparse_torch.kernels import (
-        _build,
-        dia_stream,
-        ell_spmm,
-        merge_spmv,
-        spmm_merge,
-    )
-    from tpusparse_torch.ops.reference import csr_matmat
+    from tpusparse_torch.kernels import _build, dia_stream, merge_spmv
+    from tpusparse_torch.ops.reference import csr_matmat, csr_matvec
+    from tpusparse_torch.ops.reorder import ReorderedPlan
 
     t_start = time.perf_counter()
     # [1] card and build
@@ -883,18 +1336,21 @@ def main() -> int:
         kd_dia_vs_plain("K5d", name, dia_planes_of(csr, torch.float64), L,
                         160 + L)
         for name, csr in plane_fixtures(gen, read_market) for L in F64_LS)
+    # K6 on small permutations and on the RCM permutation that
+    # reorder='auto' plans for scrambled lap3d-160 (the plan [12] drives)
+    lap160 = gen.make_laplacian_grid3d(160).to_csr()
+    scr160, p160 = scrambled(lap160, 5)
+    A12, plan12_ms = timed(lambda: plan_matrix(scr160, "auto",
+                                               reorder="auto",
+                                               device="cuda"))
+    check(isinstance(A12, ReorderedPlan) and A12.order == "rcm",
+          "scrambled lap3d-160: reorder='auto' plans RCM")
+    k6_err = k6_checks(A12.perm.cpu().numpy())
     torch.cuda.synchronize()
     print(f"[2] done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # [3]-[4] the single-RHS path; count launches from here on
-    counters = {"K1": (dia_stream, "LAUNCHES"), "K2": (merge_spmv, "LAUNCHES"),
-                "K3": (spmm_merge, "LAUNCHES"), "K4": (ell_spmm, "LAUNCHES"),
-                "K5": (dia_stream, "PLANES_LAUNCHES"),
-                "K1d": (dia_stream, "LAUNCHES_F64"),
-                "K2d": (merge_spmv, "LAUNCHES_F64"),
-                "K3d": (spmm_merge, "LAUNCHES_F64"),
-                "K4d": (ell_spmm, "LAUNCHES_F64"),
-                "K5d": (dia_stream, "PLANES_LAUNCHES_F64")}
+    counters = launch_counters()
 
     def reset_counts():
         for m, attr in counters.values():
@@ -910,11 +1366,11 @@ def main() -> int:
 
     reset_counts()
     slice_spmv(3, "lap3d-48", lap48, 30)
-    lap160 = gen.make_laplacian_grid3d(160).to_csr()
     A160, M160, t160 = slice_spmv(4, "lap3d-160", lap160, 31)
     x_true = np.random.default_rng(32).standard_normal(lap160.num_cols)
-    b = torch.from_numpy((lap160.to_scipy() @ x_true).astype(np.float32))
-    run_cg("lap3d-160 auto (K1)", A160, lap160, b.cuda())
+    b160 = (lap160.to_scipy() @ x_true).astype(np.float32)
+    it_cg160 = run_cg("lap3d-160 auto (K1)", A160, lap160,
+                      torch.from_numpy(b160).cuda())[0]
     rmat_spd17 = gen.make_rmat_spd(17, edge_factor=4).to_csr()
     gr = read_market(ROOT / "data/real/gr_30_30.mtx").to_csr()
     for tag, csr in (("rmat_spd-17-ef4 merge (K2)", rmat_spd17),
@@ -942,7 +1398,8 @@ def main() -> int:
         (lap160.num_cols, L_MULTI))).cuda()
     B160 = csr_matmat(M16.num_rows, M16.row_offsets, M16.col_indices,
                       M16.values.double(), X_true).float()
-    run_cg_multi("lap3d-160 auto (K1, (L, n) state)", A16, M16, B160)
+    it_multi160 = run_cg_multi("lap3d-160 auto (K1, (L, n) state)", A16, M16,
+                               B160)[0]
     R17 = plan_matrix(rmat_spd17, "auto", L=L_MULTI, device="cuda")
     check(isinstance(R17, merge_spmv.MergeDevice),
           "rmat_spd-17-ef4 AUTO at L=16 plans merge")
@@ -957,12 +1414,7 @@ def main() -> int:
 
     # [8] variable-coefficient operators, one right-hand side, counted
     # from 0 again
-    from tpusparse_torch import (
-        cg_solve_bf16,
-        cg_solve_multi,
-        cg_solve_refined_f32,
-        spmm,
-    )
+    from tpusparse_torch import cg_solve_bf16, cg_solve_refined_f32, spmm
     from tpusparse_torch.bench.models import dia_planes_bytes, spmv_flops
     from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
 
@@ -1099,7 +1551,65 @@ def main() -> int:
                                   L=L_MULTI, device="cuda"), "K4d")), 58)
     del Cr
     path6 = read_counts("float64 multi-RHS path", ("K1d", "K3d", "K4d"))
-    paths = (path1, path2, path3, path4, path5, path6)
+    torch.cuda.empty_cache()
+
+    # [12] the reordered path at full width, counted from 0 again
+    from tpusparse_torch import plan_kind, spmv
+    from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
+
+    reset_counts()
+    bw0, bw1 = bandwidths(scr160, A12)
+    print(f"[12] scrambled lap3d-160 ({scr160.num_rows} rows, {scr160.nnz} "
+          f"nnz): reorder='auto' plans {plan_kind(A12)} in {plan12_ms:.1f} "
+          f"ms; bandwidth {bw0} -> {bw1}", flush=True)
+    C12 = scr160.to("cuda")
+    S12 = plan_matrix(scr160, "auto", device="cuda")
+    x = rand(400, scr160.num_cols)
+    args = (C12.num_rows, C12.row_offsets, C12.col_indices)
+    y64 = csr_matvec(*args, C12.values.double(), x.double())
+    ax = csr_matvec(*args, C12.values.abs().double(), x.abs().double())
+    for label, P in (("reordered", A12), (f"own AUTO ({plan_kind(S12)})",
+                                          S12)):
+        y = spmv(P, x)
+        check(torch.isfinite(y).all() and y.shape == (scr160.num_rows,),
+              f"scrambled lap3d-160 spmv {label}: finite y")
+        check(((y.double() - y64).abs() <= 16 * U * ax).all(),
+              f"scrambled lap3d-160 spmv {label}: y within 16u|A||x|")
+        call = (cuda_time_ms(lambda: spmv(P, x)),
+                graph_time_ms(lambda: spmv(P, x)))
+        print(f"[12] scrambled lap3d-160 spmv {label}: {call[0]:.4f} ms/call,"
+              f" device {call[1]:.4f} ms")
+    merge_vs_plain(12, "scrambled lap3d-160 inner", A12.inner,
+                   k6_vs_plain(12, "scrambled lap3d-160", A12, x))
+    lib = library_csr(C12)
+    print(f"[12] scrambled lap3d-160 torch.sparse: "
+          f"{cuda_time_ms(lambda: lib @ x):.4f} ms/call")
+    del lib, S12
+    t12 = {L: k6_times(12, "lap3d-160 RCM", A12.perm, L) for L in (1, L_MULTI)}
+    it = run_cg("lap3d-160 scrambled, reorder='auto' (K6 + K2)", A12, scr160,
+                torch.from_numpy(b160[p160]).cuda(), phase=12)[0]
+    check(abs(it - it_cg160) <= 1, f"reordered CG {it} iterations within 1 "
+          f"of the unscrambled {it_cg160}")
+    X_true = np.random.default_rng(36).standard_normal(
+        (lap160.num_cols, L_MULTI))
+    B12 = torch.from_numpy((lap160.to_scipy() @ X_true).astype(np.float32)
+                           [p160]).cuda()
+    merge_vs_plain(12, "scrambled lap3d-160 inner", A12.inner,
+                   k6_vs_plain(12, "scrambled lap3d-160", A12, B12))
+    it = run_cg_multi("lap3d-160 scrambled, reorder='auto' (K6 + K3)", A12,
+                      C12, B12, phase=12)[0]
+    check(abs(it - it_multi160) <= 1, f"reordered multi-RHS CG {it} "
+          f"iterations within 1 of the unscrambled {it_multi160}")
+    print(f"[12] iterations: cg_solve {it_cg160} unscrambled, reordered "
+          f"within 1; cg_solve_multi L={L_MULTI} {it_multi160} unscrambled, "
+          f"reordered within 1")
+    path7 = read_counts("reordered path", ("K6", "K2", "K3"))
+    del A12, C12, B12, X_true, scr160, lap160
+    torch.cuda.empty_cache()
+
+    # [13] the preconditioned solvers, counted from 0 again
+    path8 = preconditioned_phase(gen, reset_counts, read_counts)
+    paths = (path1, path2, path3, path4, path5, path6, path7, path8)
     print("[5] main-path launches: " + ", ".join(
         f"{k} {sum(p[k] for p in paths)}" for k in counters))
 
@@ -1169,6 +1679,13 @@ def main() -> int:
         entry("K5d value-plane DIA SpMV, float64 planes", "dia_planes.cu",
               "tpusparse/kernels/dia_stream.py:332", "K5d", err64["K5d"],
               t10_k5, "var-7-160 spmv float64 L=1, device time"),
+        entry("K6 row permutation, float32", "permute.cu",
+              "tpusparse/kernels/permute.py:206", "K6", k6_err, t12[1],
+              "lap3d-160 RCM permutation L=1, device time"),
+        entry("K6 row permutation, float32", "permute.cu",
+              "tpusparse/kernels/permute.py:206", "K6", k6_err,
+              t12[L_MULTI], f"lap3d-160 RCM permutation L={L_MULTI}, "
+              "device time"),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

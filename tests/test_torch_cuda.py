@@ -450,3 +450,148 @@ def test_fp64_solvers_on_card_match_cpu(cuda):
         assert g.x.dtype == torch.float64
         assert torch.linalg.norm(g.x.cpu() - c.x) \
             <= 1e-8 * torch.linalg.norm(c.x)
+
+
+# --- K6 (permutation), the IC(0) host library, PCG and SPAI-CG ----------
+
+K6_DTYPES = [torch.float32, torch.float64, torch.int32]
+
+
+def _perm_x(n, L, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    shape = (n,) if L == 0 else (n, L)
+    x = torch.from_numpy(rng.standard_normal(shape) * 1e3)
+    return x.to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 5000])
+@pytest.mark.parametrize("L", [0, 1, 3, 4, 16])
+@pytest.mark.parametrize("dtype", K6_DTYPES, ids=str)
+def test_k6_matches_index_select_bitwise(cuda, dtype, L, n):
+    """L = 0 is a vector (n,); every (n, L) block in every type, with a
+    random, a reversed and the identity permutation."""
+    from tpusparse_torch.kernels import permute
+
+    x = _perm_x(n, L, dtype, cuda, n + L)
+    for perm in (np.random.default_rng(n).permutation(n),
+                 np.arange(n)[::-1], np.arange(n)):
+        p = permute.build_permute_plan(perm, cuda)
+        before = permute.LAUNCHES
+        y = permute.permute_apply(p, x)
+        torch.cuda.synchronize()
+        assert permute.LAUNCHES == before + (1 if x.numel() else 0)
+        assert y.dtype == x.dtype and y.shape == x.shape
+        assert torch.equal(y, x.index_select(0, p))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k6_unaligned_rows(cuda, offset):
+    """Rows of 16 B at an address that is only 4- (or 8-) aligned: K6
+    falls back to narrower words and stays exact."""
+    from tpusparse_torch.kernels import permute
+
+    n = 1000
+    flat = torch.arange((n + 1) * 4, dtype=torch.float32, device=cuda)
+    x = flat[offset:offset + n * 4].view(n, 4)
+    p = permute.build_permute_plan(np.random.default_rng(1).permutation(n),
+                                   cuda)
+    assert torch.equal(permute.permute_apply(p, x), x.index_select(0, p))
+
+
+def test_k6_raises_on_wrong_operands(cuda):
+    from tpusparse_torch.kernels import permute
+
+    perm = np.random.default_rng(2).permutation(100)
+    with pytest.raises(ValueError, match="same device"):
+        permute.permute_apply(permute.build_permute_plan(perm, "cpu"),
+                              torch.zeros(100, device=cuda))
+    bad = perm.copy()
+    bad[5] = 100
+    with pytest.raises(ValueError, match=r"\[0, 100\)"):
+        permute.build_permute_plan(bad, cuda)
+    p = permute.build_permute_plan(perm, cuda)
+    with pytest.raises(ValueError, match="rows but the plan"):
+        permute.permute_apply(p, torch.zeros(99, device=cuda))
+    with pytest.raises(TypeError):
+        permute.permute_apply(p, torch.zeros(100, device=cuda,
+                                             dtype=torch.float16))
+
+
+IC0_CASES = {
+    "lap2d-24": lambda: gen.make_laplacian_grid2d(24).to_csr(),
+    "lap3d-10": lambda: gen.make_laplacian_grid3d(10).to_csr(),
+    "gr_30_30": lambda: read_market(ROOT / "data/real/gr_30_30.mtx"
+                                    ).to_csr(),
+    "fem2d-2000": lambda: gen.make_fem2d(2000, seed=1).to_csr(),
+    "indefinite-2": lambda: CsrMatrix(2, 2, np.array([0, 2, 4]),
+                                      np.array([0, 1, 0, 1]),
+                                      np.array([1.0, 2.0, 2.0, 1.0])),
+}
+
+
+@pytest.mark.parametrize("name", list(IC0_CASES))
+def test_native_ic0_and_levels_equal_python(cuda, name):
+    from tpusparse_torch.precond import ic0, trisolve
+
+    assert ic0.default_impl() == "native"
+    csr = IC0_CASES[name]()
+    Ln = ic0.ic0_factorize(csr, impl="native")
+    Lp = ic0.ic0_factorize(csr, impl="python")
+    np.testing.assert_array_equal(Ln.col_indices, Lp.col_indices)
+    assert np.all(np.abs(Ln.values - Lp.values)
+                  <= 1e-13 * np.abs(Lp.values))
+    for T, lower in ((Lp, True), (Lp.transpose(), False)):
+        ro, ci = np.asarray(T.row_offsets), np.asarray(T.col_indices)
+        np.testing.assert_array_equal(
+            trisolve._dependency_levels(ro, ci, T.num_rows, lower, "native"),
+            trisolve._dependency_levels(ro, ci, T.num_rows, lower, "python"))
+    with pytest.raises(RuntimeError):
+        ic0.ic0_factorize(IC0_CASES["indefinite-2"](), max_attempts=1,
+                          impl="native")
+
+
+def test_preconditioned_solvers_on_card_match_cpu(cuda):
+    from tpusparse_torch import (
+        ic0_factorize,
+        make_exact_ic0_preconditioner,
+        make_ic0_preconditioner,
+        pcg_solve_multi,
+        spai_cg_solve_multi,
+        spai_inverse,
+    )
+    from tpusparse_torch.kernels import permute
+    from tpusparse_torch.ops.reorder import permute_symmetric
+
+    lap = gen.make_laplacian_grid2d(32).to_csr()
+    csr = permute_symmetric(
+        lap, np.random.default_rng(5).permutation(lap.num_rows))
+    Lf = ic0_factorize(csr)
+    B = _x(None, 9, "cpu", (csr.num_rows, 4))
+    M = spai_inverse(csr, device=cuda)
+    M_cpu = spai_inverse(csr, device="cpu")
+    assert np.abs(M.values - M_cpu.values).max() \
+        <= 1e-10 * np.abs(M_cpu.values).max()
+    out = {}
+    for dev in ("cpu", cuda):
+        A = plan_matrix(csr, "auto", reorder="rcm", L=4, device=dev)
+        A0 = plan_matrix(csr, "auto", L=4, device=dev)
+        before = permute.LAUNCHES
+        out[dev] = (
+            pcg_solve_multi(A0, B.to(dev), make_ic0_preconditioner(
+                Lf, num_rhs=4, dtype=np.float32, device=dev)),
+            pcg_solve_multi(A0, B.to(dev), make_exact_ic0_preconditioner(
+                Lf, device=dev)),
+            spai_cg_solve_multi(A0, plan_matrix(M, "auto", L=4, device=dev),
+                                B.to(dev)),
+            cg_solve_multi(A, B.to(dev)),
+            # in the permuted space, with the reordered matrix's factor
+            pcg_solve_multi(A, B.to(dev), make_ic0_preconditioner(
+                ic0_factorize(A.permuted(csr)), num_rhs=4, dtype=np.float32,
+                device=dev)))
+        if dev == cuda:
+            assert permute.LAUNCHES == before + 4
+    for g, c in zip(out[cuda], out["cpu"]):
+        assert bool(g.converged.all()) and g.x.is_cuda
+        assert abs(g.iterations - c.iterations) <= 1
+        assert torch.linalg.norm(g.x.cpu() - c.x) \
+            <= 1e-3 * torch.linalg.norm(c.x)

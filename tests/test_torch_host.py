@@ -219,7 +219,7 @@ NOT_PORTED = [
     ("fp64", {"dtype": np.float64}, "dia"),
     ("torch-fp64", {"dtype": torch.float64}, "dia"),
     ("multi-rhs", {"L": 4}, "dia"),
-    ("reorder", {"reorder": "rcm"}, None),
+    ("reorder", {"reorder": "rcm"}, "rcm+hybrid_dia"),
     ("row_split", {"strategy": "row_split", "L": 4}, "row_split"),
     ("ell-alias", {"strategy": "ell", "L": 4}, "row_split"),
     ("bsr", {"strategy": "bsr"}, None),
@@ -234,8 +234,8 @@ NOT_PORTED = [
 def test_plan_matrix_names_roadmap_item(name, kw, kind):
     """A plan the port does not build yet raises NotImplementedError
     naming its ROADMAP item; one whose item is done (A8: multi-RHS
-    plans, ``row_split`` and its aliases; A9: float64 plans) plans its
-    family."""
+    plans, ``row_split`` and its aliases; A9: float64 plans; A10:
+    reordered plans) plans its family."""
     csr = gen.make_laplacian_grid2d(6).to_csr()
     if kind is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

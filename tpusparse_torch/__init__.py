@@ -10,12 +10,15 @@ Layering mirrors ``tpusparse``:
     formats/   COO, host CSR (+ ``to(device)``), DIA partition (numpy)
     io/        .mtx reader, synthetic generators (numpy)
     ops/       plan_matrix / spmv / spmm dispatch, hybrid DIA + merge,
-               BLAS-1 (single and multi-RHS)
+               reordering (RCM, degree; ``ReorderedPlan``), BLAS-1
+               (single and multi-RHS)
     kernels/   hand-written CUDA kernels (``csrc/``) and their plain
                PyTorch versions, which serve CPU tensors only
-    solvers/   conjugate gradient, single and blocked multi-RHS; the
-               float64 refinements and the bf16-plane mixed-precision
-               solvers
+    precond/   IC(0) (host factorization, Jacobi and level-scheduled
+               triangular solves) and SPAI
+    solvers/   conjugate gradient, single and blocked multi-RHS; PCG with
+               IC(0) and SPAI-CG; the float64 refinements and the
+               bf16-plane mixed-precision solvers
     bench/     CUDA-event timing, flop and byte models
     utils/     result comparison, carrying JAX plans across
 
@@ -26,10 +29,15 @@ with ``dtype=np.float64``, in IEEE float64; float64 solutions at float32
 speed through ``cg_solve_refined`` / ``cg_solve_multi_refined`` (a
 float32 and a float64 plan of one matrix); for a variable-coefficient
 band also ``plan_dia_bf16`` -> ``cg_solve_bf16`` /
-``cg_solve_refined_f32`` / ``cg_solve_multi_refined_f32``.
+``cg_solve_refined_f32`` / ``cg_solve_multi_refined_f32``. With
+``plan_matrix(..., reorder='auto' | 'rcm' | 'degree')`` each runs on a
+``ReorderedPlan`` (permutations on the card by K6); and
+``ic0_factorize`` / ``spai_inverse`` -> ``pcg_solve_multi`` with
+``make_ic0_preconditioner`` / ``make_exact_ic0_preconditioner``, and
+``spai_cg_solve_multi``.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 from tpusparse_torch.formats.coo import CooMatrix
 from tpusparse_torch.formats.csr import CsrMatrix
@@ -44,7 +52,15 @@ from tpusparse_torch.ops.spmv import (
     spmm,
     spmv,
 )
+from tpusparse_torch.ops.reorder import ReorderedPlan, plan_reorder
+from tpusparse_torch.precond.ic0 import ic0_factorize
+from tpusparse_torch.precond.spai import spai_inverse
 from tpusparse_torch.solvers.cg import CgResult, cg_solve, cg_solve_multi
+from tpusparse_torch.solvers.pcg import (
+    make_exact_ic0_preconditioner,
+    make_ic0_preconditioner,
+    pcg_solve_multi,
+)
 from tpusparse_torch.solvers.refine import (
     RefineResult,
     ReplCgResult,
@@ -54,12 +70,14 @@ from tpusparse_torch.solvers.refine import (
     cg_solve_refined,
     cg_solve_refined_f32,
 )
+from tpusparse_torch.solvers.spai_cg import spai_cg_solve_multi
 
 __all__ = [
     "CgResult",
     "CooMatrix",
     "CsrMatrix",
     "RefineResult",
+    "ReorderedPlan",
     "ReplCgResult",
     "SpmvStrategy",
     "cg_solve",
@@ -69,12 +87,19 @@ __all__ = [
     "cg_solve_multi_refined_f32",
     "cg_solve_refined",
     "cg_solve_refined_f32",
+    "ic0_factorize",
+    "make_exact_ic0_preconditioner",
+    "make_ic0_preconditioner",
+    "pcg_solve_multi",
     "plan_dia_bf16",
     "plan_dtype",
     "plan_kind",
     "plan_matrix",
+    "plan_reorder",
     "plan_semantics",
     "read_market",
+    "spai_cg_solve_multi",
+    "spai_inverse",
     "spmm",
     "spmv",
 ]

@@ -9,6 +9,11 @@
                      + (cols + rows) * L * sV (payload and offsets once,
                      X and Y once per lane)
   * CG GFLOP/s     = (2 nnz + 10 n) * L * iters / t
+  * permutation    = rows * (4 + 2 L sV) (index, X read and Y written)
+  * PCG flops      = CG's + 2 nnz(M) L per iteration for an SpMM
+                     preconditioner (SPAI), + sweeps * 2 * 2 nnz(L) L
+                     for Jacobi IC(0) (two triangles, a product per
+                     sweep each)
 
 sV is the size of a value (4 B in float32, 8 B in float64), sO of an
 offset. The TPU's measured stream ceilings are left out: a bound on the
@@ -57,6 +62,23 @@ def spmm_bytes(nnz: int, rows: int, cols: int, L: int = 1,
 
 def cg_flops(nnz: int, n: int, L: int, iters: int) -> float:
     return (2.0 * nnz + 10.0 * n) * L * iters
+
+
+def permute_bytes(rows: int, L: int = 1, value_bytes: int = 4) -> float:
+    """y = x[perm]: a 4 B index per row, X (rows, L) read and Y written
+    once."""
+    return rows * (4 + 2 * value_bytes * L)
+
+
+def pcg_flops(nnz: int, n: int, L: int, iters: int, precond_nnz: int,
+              sweeps: int | None = None) -> float:
+    """PCG: CG's flops plus the preconditioner's per iteration, for an
+    SpMM preconditioner of ``precond_nnz`` entries (SPAI's M) or, with
+    ``sweeps``, Jacobi IC(0) on a factor of ``precond_nnz`` entries
+    (sweeps x 2 triangles x 2 nnz(L) L)."""
+    per = (2.0 * precond_nnz * L if sweeps is None
+           else 2.0 * sweeps * 2.0 * precond_nnz * L)
+    return cg_flops(nnz, n, L, iters) + per * iters
 
 
 # Published peaks of one NVIDIA H100 SXM at its full 700 W limit (NVIDIA's

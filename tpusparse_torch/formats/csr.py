@@ -71,6 +71,35 @@ class CsrMatrix:
                    np.ascontiguousarray(coo.cols, dtype=np.int32),
                    np.ascontiguousarray(coo.vals))
 
+    @classmethod
+    def from_scipy(cls, m) -> "CsrMatrix":
+        """From a scipy sparse matrix, with the columns of each row
+        sorted (scipy's ``tocsr`` does not guarantee it)."""
+        m = m.tocsr()
+        if not m.has_sorted_indices:
+            m = m.copy()
+            m.sort_indices()
+        return cls(m.shape[0], m.shape[1], m.indptr.astype(np.int32),
+                   m.indices.astype(np.int32), m.data)
+
+    def row_ids(self) -> np.ndarray:
+        """The row of every stored entry, (nnz,) int32."""
+        return np.repeat(np.arange(self.num_rows, dtype=np.int32),
+                         np.diff(np.asarray(self.row_offsets)))
+
+    def transpose(self) -> "CsrMatrix":
+        """A^T by a stable sort on (column, row), as the JAX package's
+        ``CsrMatrix.transpose``."""
+        cols = np.asarray(self.col_indices)
+        rows = self.row_ids()
+        order = np.lexsort((rows, cols))
+        offsets = np.zeros(self.num_cols + 1, dtype=np.int32)
+        np.cumsum(np.bincount(cols, minlength=self.num_cols),
+                  out=offsets[1:])
+        return CsrMatrix(self.num_cols, self.num_rows, offsets,
+                         rows[order].astype(np.int32),
+                         np.asarray(self.values)[order])
+
     def to_scipy(self):
         import scipy.sparse as sp
 

@@ -9,7 +9,8 @@ JAX package, so both packages can be handed one matrix.
   * ``make_wheel`` — hub-and-rim wheel: one row holds ``spokes``
     nonzeros (the row-skew stress test for merge-path SpMV);
   * ``make_rmat`` / ``make_rmat_spd`` — R-MAT power-law graphs;
-  * ``make_variable_stencil`` — variable-coefficient SPD diffusion.
+  * ``make_variable_stencil`` — variable-coefficient SPD diffusion;
+  * ``make_fem2d`` — P1 finite elements on a random Delaunay mesh.
 """
 
 from __future__ import annotations
@@ -171,4 +172,30 @@ def make_rmat_spd(scale: int, edge_factor: int = 8, seed: int = 0,
     d = np.asarray(S.sum(axis=1)).ravel() + 1.0
     A = (-S + sp.diags(d)).tocoo()
     return CooMatrix(g.num_rows, g.num_cols, A.row.astype(np.int32),
+                     A.col.astype(np.int32), A.data.astype(dtype))
+
+
+def make_fem2d(n_points: int, seed: int = 0, lump: float = 1e-3,
+               dtype=np.float64) -> CooMatrix:
+    """P1 finite-element stiffness matrix on a random Delaunay
+    triangulation of the unit square (the SuiteSparse structural / FEM
+    class): irregular node numbering and bandwidth, ~7 nonzeros a row,
+    SPD through a lumped-mass diagonal shift ``lump * area / 3`` per
+    incident triangle (the discrete Helmholtz operator)."""
+    import scipy.sparse as sp
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n_points, 2))
+    tri = Delaunay(pts).simplices
+    p = pts[tri]
+    e = p[:, [2, 0, 1]] - p[:, [1, 2, 0]]
+    area = 0.5 * np.abs(e[:, 0, 0] * e[:, 1, 1] - e[:, 0, 1] * e[:, 1, 0])
+    k = np.einsum("tix,tjx->tij", e, e) / (4.0 * area)[:, None, None]
+    rows = np.concatenate([np.repeat(tri, 3, axis=1).ravel(), tri.ravel()])
+    cols = np.concatenate([np.tile(tri, (1, 3)).ravel(), tri.ravel()])
+    vals = np.concatenate([k.ravel(), lump * np.repeat(area / 3.0, 3)])
+    A = sp.coo_matrix((vals, (rows, cols)),
+                      shape=(n_points, n_points)).tocsr().tocoo()
+    return CooMatrix(n_points, n_points, A.row.astype(np.int32),
                      A.col.astype(np.int32), A.data.astype(dtype))

@@ -3,7 +3,9 @@
 Counterpart of ``tpusparse/kernels/_util.py``. The TPU wrappers there
 (``kernel_no_x64``, ``tala32``) have no counterpart: here a kernel is
 CUDA C++ in ``tpusparse_torch/csrc/``, compiled by ``nvcc`` into one
-shared library with a plain C interface and loaded with ``ctypes``.
+shared library with a plain C interface and loaded with ``ctypes``. The
+same library holds the host C++ of the IC(0) factorization and the
+triangular dependency levels (``csrc/ic0_host.cpp``).
 
 The build happens at first use (``library()``), never at import, and
 only from the sources in the package. It writes into
@@ -30,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
-# C entry points: name -> argtypes. Every entry returns the
+# C entry points: name -> argtypes. Every kernel entry returns the
 # cudaGetLastError() code after its launches (0 = success). Each float32
 # kernel has a float64 twin, ``<name>_f64``, built from the same template
 # and taking double operands (and, for the masked DIA kernel, double
@@ -61,13 +63,27 @@ SIGNATURES = {
     # row_offsets, col_indices, values, X, Y, num_rows, L, stream
     "tps_rowsplit_spmm": (_P, _P, _P, _P, _P, _I32, _I32, _P),
     "tps_rowsplit_spmm_f64": (_P, _P, _P, _P, _P, _I32, _I32, _P),
+    # perm, x, y, n, words per row, bytes per word, stream
+    "tps_permute": (_P, _P, _P, _I64, _I32, _I32, _P),
+    # host entries (ic0_host.cpp; no stream, nothing on the card):
+    # n, row_offsets (int64), col_indices (int64), vals_in, vals_out,
+    # max_attempts, initial_shift -> attempts used (0 = failed)
+    "tps_ic0_factorize": (_I64, _P, _P, _P, _P, _I32, ctypes.c_double),
+    # n, row_offsets (int64), col_indices (int32), lower, out_level
+    # (int32) -> number of levels
+    "tps_tri_levels": (_I64, _P, _P, _I32, _P),
 }
 
 _lib: ctypes.CDLL | None = None
 
 
+def _units() -> list[Path]:
+    """The compilation units: the CUDA sources and the host C++ ones."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cpp"))
+
+
 def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return _units() + sorted(CSRC.glob("*.cuh"))
 
 
 def source_hash() -> str:
@@ -101,9 +117,10 @@ def _run(procs) -> None:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed build directory (once) and
-    return the library path. Each source compiles in its own ``nvcc``
-    process, all started together; one more links them."""
+    """Compile ``csrc/*.cu`` and ``csrc/*.cpp`` into the hashed build
+    directory (once) and return the library path. Each source compiles
+    in its own ``nvcc`` process, all started together; one more links
+    them."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -112,7 +129,7 @@ def build() -> Path:
     nvcc = _nvcc()
     tag = os.getpid()
     objs, procs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in _units():
         obj = out_dir / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         objs.append(obj)

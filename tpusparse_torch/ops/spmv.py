@@ -42,8 +42,12 @@ the XLA DIA op and the stream kernels (``DIA_STREAM_MIN_BYTES``,
 ``DIA_STREAM_MAX_L``, ``stream_ok`` and the ``fits_stream`` block limit
 on |offset|): they follow XLA's fusion capacity and the TPU's VMEM
 blocks, and one Hopper kernel (K5) covers both regimes. The other
-strategies and reordering raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+strategies raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
+
+``reorder='rcm' | 'degree' | 'auto'`` plans the symmetrically permuted
+matrix and wraps it in a ``ReorderedPlan`` (``ops/reorder.py``); its
+permutations run on K6.
 """
 
 from __future__ import annotations
@@ -84,6 +88,7 @@ from tpusparse_torch.kernels.spmm_merge import spmm_merge
 from tpusparse_torch.ops.dia import spmm_dia, spmv_dia
 from tpusparse_torch.ops.hybrid import HybridPlan, spmm_hybrid, spmv_hybrid
 from tpusparse_torch.ops.reference import spmm_reference, spmv_reference
+from tpusparse_torch.ops.reorder import ReorderedPlan
 
 
 class SpmvStrategy(enum.Enum):
@@ -127,10 +132,14 @@ def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
     values in ``dtype`` (numpy or torch float32 or float64; float64
     keeps the host values unrounded). ``L`` (>= 1) is the number of
     right-hand sides the plan will serve; every plan of the port serves
-    any L, so it does not change the choice."""
+    any L, so it does not change the choice. ``reorder`` ('rcm',
+    'degree' or 'auto') plans a symmetric permutation of the matrix
+    (``ops/reorder.plan_reorder``)."""
     if reorder:
-        raise NotImplementedError(
-            "reorder: reordered plans (kernel B13) are ROADMAP A10")
+        from tpusparse_torch.ops.reorder import plan_reorder
+
+        return plan_reorder(csr, strategy=strategy, dtype=dtype, L=L,
+                            order=reorder, device=device)
     strategy = SpmvStrategy.parse(strategy)
     dtype = value_dtype(dtype)
     if int(L) < 1:
@@ -211,6 +220,8 @@ def plan_dtype(A) -> torch.dtype:
     bf16 value planes (a hybrid takes it from its DIA part, whose
     remainder then holds float32)."""
     plan_kind(A)
+    if isinstance(A, ReorderedPlan):
+        A = A.inner
     if isinstance(A, HybridPlan):
         A = A.dia
     if isinstance(A, DiaStreamDevice):
@@ -225,7 +236,10 @@ def _bf16_planes(A) -> bool:
 
 
 def plan_kind(A) -> str:
-    """Short name of a plan's kernel family (the JAX package's labels)."""
+    """Short name of a plan's kernel family (the JAX package's labels);
+    a reordered plan is ``order + "+" + `` its inner plan's."""
+    if isinstance(A, ReorderedPlan):
+        return f"{A.order}+{plan_kind(A.inner)}"
     if isinstance(A, HybridPlan):
         tag = "dia_bf16" if _bf16_planes(A.dia) else "dia"
         return tag if A.rest is None else "hybrid_" + tag
@@ -251,8 +265,18 @@ def plan_semantics(A) -> str:
             torch.bfloat16: "bf16-plane(~4e-3)"}.get(plan_dtype(A), "f32")
 
 
+def _vector_dtype(A) -> torch.dtype:
+    """The type of the vectors a plan computes on: float64 for a float64
+    plan, else float32 (bf16 planes are upcast in the kernel)."""
+    return torch.float64 if plan_dtype(A) == torch.float64 else torch.float32
+
+
 def spmv(A, x, alpha=1.0, beta=0.0, y=None):
     """y = alpha * A @ x + beta * y for any plan of ``plan_matrix``."""
+    if isinstance(A, ReorderedPlan):
+        xp = A.apply_perm(x.to(_vector_dtype(A)))
+        y_new = A.apply_inv(spmv(A.inner, xp, alpha=alpha))
+        return y_new if beta == 0.0 or y is None else y_new + beta * y
     if isinstance(A, HybridPlan):
         return spmv_hybrid(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, DiaStreamDevice):
@@ -275,6 +299,10 @@ def spmm(A, X, alpha=1.0, beta=0.0, Y=None):
     if X.dim() == 1:
         Y2 = None if Y is None else Y.reshape(-1, 1)
         return spmm(A, X.reshape(-1, 1), alpha=alpha, beta=beta, Y=Y2)[:, 0]
+    if isinstance(A, ReorderedPlan):
+        Xp = A.apply_perm(X.to(_vector_dtype(A)))
+        Y_new = A.apply_inv(spmm(A.inner, Xp, alpha=alpha))
+        return Y_new if beta == 0.0 or Y is None else Y_new + beta * Y
     if isinstance(A, HybridPlan):
         return spmm_hybrid(A, X, alpha=alpha, beta=beta, Y=Y)
     if isinstance(A, DiaStreamDevice):

@@ -30,6 +30,12 @@ the kernels' own layout, with no transposes per iteration (the JAX
 package's ``_pure_dia_of`` / ``_dia_t_callable``); every other plan
 keeps (n, L) and calls ``spmm``.
 
+On a ``ReorderedPlan`` both solvers run in the permuted space, as the
+JAX package's do: b (B) is permuted once on the way in and x (X) once on
+the way out, both by K6, and the solve runs on the inner plan, so a pure
+DIA inner plan keeps its (L, n) state. Residuals and iterations do not
+depend on the order of the unknowns.
+
 The state is in ``b``'s dtype: a float64 ``b`` on a float64 plan (the
 kernels K1d-K5d) keeps x, r, p, the dots, ``alpha``, ``beta`` and the
 history in float64 end to end.
@@ -62,6 +68,7 @@ from tpusparse_torch.ops.blas import (
     update_p_single,
 )
 from tpusparse_torch.ops.hybrid import HybridPlan
+from tpusparse_torch.ops.reorder import ReorderedPlan
 from tpusparse_torch.ops.spmv import spmm, spmv
 
 
@@ -82,6 +89,10 @@ def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
              record_history: bool = False) -> CgResult:
     """Solve A x = b for a plan ``A`` of ``plan_matrix``; ``b`` lies on
     the plan's device, in the working dtype."""
+    if isinstance(A, ReorderedPlan):
+        res = cg_solve(A.inner, A.apply_perm(b), max_iters, tolerance,
+                       record_history)
+        return dataclasses.replace(res, x=A.apply_inv(res.x))
     x = torch.zeros_like(b)
     r = b
     p = r
@@ -119,6 +130,10 @@ def cg_solve_multi(A, B: torch.Tensor, max_iters: int = 10000,
     dtype."""
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
+    if isinstance(A, ReorderedPlan):
+        res = cg_solve_multi(A.inner, A.apply_perm(B), max_iters, tolerance,
+                             record_history)
+        return dataclasses.replace(res, x=A.apply_inv(res.x))
     mm_t = _dia_t_callable(A)
     if mm_t is not None:
         XT, i, converged, rel, hist = _cg_multi_loop(
@@ -147,11 +162,13 @@ def _dia_t_callable(A):
 
 
 def _cg_multi_loop(matmat, B, lane_dim, max_iters, tolerance,
-                   record_history):
-    """The blocked CG loop on state laid out with the lanes on
+                   record_history, precond=None):
+    """The blocked (P)CG loop on state laid out with the lanes on
     ``lane_dim``: 1 for the (n, L) layout (BLAS-1 of ``ops/blas.py``), 0
     for (L, n), where the dots sum over dim 1 and per-lane scalars
-    broadcast as (L, 1)."""
+    broadcast as (L, 1). ``precond(R) -> Z`` (in R's layout, cast back
+    to B's type) makes it PCG with ``rho = r.z``; without one, Z = R and
+    the loop is CG."""
     if lane_dim == 1:
         dot, axpy, update = dot_multiple, axpy_multiple, update_p_multiple
     else:
@@ -163,14 +180,20 @@ def _cg_multi_loop(matmat, B, lane_dim, max_iters, tolerance,
 
         def update(r, beta, p):
             return r + beta[:, None] * p
+
+    def prec(R):
+        return R if precond is None else precond(R).to(B.dtype)
+
     L = B.shape[lane_dim]
     X = torch.zeros_like(B)
     R = B
-    P = B
+    Z = prec(R)
+    P = Z
     b_norms = torch.sqrt(dot(B, B))
     b_norms = torch.where(b_norms == 0, torch.ones_like(b_norms), b_norms)
-    rs_old = dot(R, R)
-    zero = torch.zeros_like(rs_old)
+    rs = dot(R, R)
+    rho_old = rs if precond is None else dot(R, Z)
+    zero = torch.zeros_like(rs)
     converged = torch.zeros(L, dtype=torch.bool, device=B.device)
     hist = torch.full((max_iters if record_history else 0,), float("nan"),
                       dtype=B.dtype, device=B.device)
@@ -178,16 +201,19 @@ def _cg_multi_loop(matmat, B, lane_dim, max_iters, tolerance,
     while i < max_iters and not bool(converged.all()):
         AP = matmat(P)
         pAp = dot(P, AP)
-        alpha = torch.where(converged | (pAp == 0), zero, rs_old / pAp)
+        alpha = torch.where(converged | (pAp == 0), zero, rho_old / pAp)
         X = axpy(X, alpha, P)
         R = axpy(R, -alpha, AP)
-        rs_new = dot(R, R)
-        rel = torch.sqrt(rs_new) / b_norms
+        rs = dot(R, R)
+        rel = torch.sqrt(rs) / b_norms
         converged = converged | (rel < tolerance)
         if record_history:
             hist[i] = torch.max(rel)
-        beta = torch.where(converged | (rs_old == 0), zero, rs_new / rs_old)
-        P = update(R, beta, P)
-        rs_old = rs_new
+        Z = prec(R)
+        rho_new = rs if precond is None else dot(R, Z)
+        beta = torch.where(converged | (rho_old == 0), zero,
+                           rho_new / rho_old)
+        P = update(Z, beta, P)
+        rho_old = rho_new
         i += 1
-    return X, i, converged, torch.sqrt(rs_old) / b_norms, hist
+    return X, i, converged, torch.sqrt(rs) / b_norms, hist

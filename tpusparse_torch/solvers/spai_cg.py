@@ -1,0 +1,27 @@
+"""SPAI-CG: CG preconditioned by a sparse approximate inverse (port of
+``tpusparse/solvers/spai_cg.py``).
+
+The reference's ``SPAISolveMultiple``: PCG whose preconditioner is one
+SpMM with the SPAI matrix M (``precond/spai.spai_inverse``), planned by
+``plan_matrix`` like any operator, so z = M r runs on the port's
+kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpusparse_torch.ops.spmv import spmm
+from tpusparse_torch.solvers.cg import CgResult
+from tpusparse_torch.solvers.pcg import pcg_solve_multi
+
+
+def spai_cg_solve_multi(A, M, B: torch.Tensor, max_iters: int = 10000,
+                        tolerance: float = 1e-5,
+                        record_history: bool = True) -> CgResult:
+    """Blocked multi-RHS CG on A X = B with z = M r, for plans ``A`` and
+    ``M`` of ``plan_matrix``. For a ``ReorderedPlan`` A the solve runs in
+    the permuted space (``pcg_solve_multi``): M is then the SPAI of
+    ``A.permuted(csr)``."""
+    return pcg_solve_multi(A, B, lambda R: spmm(M, R), max_iters,
+                           tolerance, record_history=record_history)

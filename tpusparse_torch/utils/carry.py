@@ -40,6 +40,11 @@ type; a JAX host CSR holds float64 values even for a float32 plan):
     explicit zero both read 0 and are dropped alike, so the rebuilt CSR
     equals the original only for a matrix with no explicit zeros.
 
+  * ``"reordered"`` — a ``ReorderedPlan`` from a JAX ``ReorderedPlan``:
+    ``inner_kind`` and ``inner`` (the inner plan's kind and arrays, as
+    above), ``perm`` and ``inv_perm`` (the JAX plan's gather indices),
+    ``order``, ``nnz`` and ``shape``; ``dtype`` goes to the inner plan.
+
 A double-float pair holds ``hi = f32(a)`` and ``lo = f32(a - hi)``, so
 the float64 sum ``hi + lo`` of the two ``_df`` kinds is within 2^-48
 relative of the original float64 value ``a``, not always equal to it.
@@ -55,16 +60,28 @@ from tpusparse_torch.formats.dia import PLANE_DTYPES, DiaDevice
 from tpusparse_torch.kernels.dia_stream import from_mask_words
 from tpusparse_torch.kernels.ell_spmm import to_device_row_split
 from tpusparse_torch.kernels.merge_spmv import to_device_merge
+from tpusparse_torch.kernels.permute import build_permute_plan
+from tpusparse_torch.ops.reorder import ReorderedPlan
 
 LANES = 128  # rows per row block and columns per column block of ELL
 KINDS = ("dia_masked", "dia_masked_df", "dia", "dia_planes", "dia_df",
-         "csr", "row_split", "ell")
+         "csr", "row_split", "ell", "reordered")
 
 
 def plan_from_arrays(kind: str, arrays: dict, device, dtype=None):
     if kind not in KINDS:
         raise ValueError(f"unknown plan kind {kind!r} ({', '.join(KINDS)})")
     n_rows, n_cols = (int(s) for s in arrays["shape"])
+    if kind == "reordered":
+        if arrays["inner_kind"] == "reordered":
+            raise ValueError("a reordered plan's inner plan is not reordered")
+        return ReorderedPlan(
+            n_rows, n_cols, int(arrays["nnz"]),
+            plan_from_arrays(arrays["inner_kind"], arrays["inner"], device,
+                             dtype),
+            build_permute_plan(np.asarray(arrays["perm"]), device),
+            build_permute_plan(np.asarray(arrays["inv_perm"]), device),
+            str(arrays["order"]))
     if kind in ("dia", "dia_planes", "dia_df"):
         D = _dia_of_planes(kind, arrays, n_rows, n_cols, device)
         if dtype is not None:
