@@ -25,7 +25,12 @@ and exits non-zero on any failure:
   * the preconditioned solvers on reordered plans: ``ic0_factorize`` /
     ``spai_inverse`` on the permuted matrix -> ``pcg_solve_multi`` (Jacobi
     and exact IC(0)) / ``spai_cg_solve_multi``, in float32 and float64
-    (K6, K3, K3d).
+    (K6, K3, K3d), and a preconditioner in the caller's order behind K6;
+  * the n-major path: ``plan_matrix(csr, 'nmajor', L=16)`` -> ``spmm`` /
+    ``cg_solve_multi`` / ``pcg_solve_multi`` on (n, L) blocks (K7), beside
+    AUTO (K1 behind transposes);
+  * the BSR path: ``plan_matrix(csr, 'bsr')`` -> ``spmv`` / ``spmm`` (K8,
+    and K8d in float64).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -51,7 +56,14 @@ Phases, each printed on its own lines:
       equal to ``index_select`` in float32 and float64 at L = 1, 3 and
       16, n = 0, 1, 1023 and 4,096,000, on the identity, a reversal, a
       seeded random permutation and the RCM permutation of scrambled
-      lap3d-160;
+      lap3d-160; K7 on n-major plans of lap3d-48, lap2d-300 and lap3d-47
+      (103,823 rows, not a multiple of 32) at L = 2, 3, 16, 32 and 100,
+      bitwise equal to its plain version and to K1 on X.T; K8 and K8d on
+      'bsr' plans of ``make_block_random`` fixtures ((8, 128) blocks,
+      full and 0.3 fill, edges cut mid-block with an emptied block row,
+      nnz = 0) at L = 1, 3, 16 and 32, within 2(w_i + 2)u|A||X| of their
+      plain versions and of a float64 product (w_i the stored entries of
+      row i), two runs bitwise equal;
   [3] the single-RHS slice at the bench fixture lap3d-48: AUTO must give
       a masked DIA plan; SpMV times (CUDA events per call as made, and
       device time from CUDA-graph replay) beside the plain versions', the
@@ -117,13 +129,34 @@ Phases, each printed on its own lines:
       and its float64 true residual held to its recurrence's. Every
       kernel of the phase is held against its plain version on the
       phase's own operands: K6 on B, K3 and K3d on the inner plans, the
-      Jacobi sweeps' strict triangles and SPAI's M;
+      Jacobi sweeps' strict triangles and SPAI's M. These preconditioners
+      declare the plan's order (``perm=A.perm``); in (b) Jacobi IC(0) of
+      the matrix as given also runs in the caller's order, behind K6 (the
+      JAX package's call);
+ [14] the n-major path at lap3d-160, L = 16: ``spmm`` on
+      ``strategy='nmajor'`` (K7) and on AUTO (K1 behind the transposes),
+      checked against float64, each bitwise equal to its plain version
+      and K7 to K1 on X.T, timed with K7 and K1 alone beside the
+      plain versions, ``torch.sparse`` and the bound; ``cg_solve_multi``
+      on both plans (iterations within 1, ms/iteration); Jacobi
+      IC(0)-PCG at L = 16 on natural-order lap3d-128 on both plans, K7
+      and the Jacobi strict triangles' K5 held against their plain
+      versions on its operands;
+ [15] the BSR path: ``make_block_random(8192, 4, seed=0)`` (65,536 x
+      1,048,576, 33.5M nnz) with its ``fill_estimate``; ``spmv`` and
+      ``spmm`` at L = 1 and 16 on a 'bsr' plan (K8) and its float64 plan
+      (K8d), within 2(w_i + 2)u|A||X| of a float64 product and of the
+      plain version, timed beside
+      the plain version, ``torch.sparse`` CSR, ``torch.sparse_bsr_tensor``
+      where PyTorch takes (8, 128) blocks on the card, the bound and K3 on
+      the merge plan of the same matrix;
   [5] launch counts of each main path, counted from 0 just before it
-      ([3]-[4], [6]-[7], [8], [9], [10], [11], [12] and [13]) and read
-      just after: K1 and K2 must have run on the first, K1, K3 and K4 on
-      the second, K5 on the third and the fourth, K1d, K2d and K5d on
-      the fifth, K1d, K3d and K4d on the sixth, K6, K2 and K3 on the
-      seventh, K6, K3 and K3d on the eighth.
+      ([3]-[4], [6]-[7], [8], [9], [10], [11], [12], [13], [14] and
+      [15]) and read just after: K1 and K2 must have run on the first,
+      K1, K3 and K4 on the second, K5 on the third and the fourth, K1d,
+      K2d and K5d on the fifth, K1d, K3d and K4d on the sixth, K6, K2 and
+      K3 on the seventh, K6, K3 and K3d on the eighth, K7 and K1 on the
+      ninth, K8 and K8d on the tenth.
 
 The last two lines are a JSON object of the kernels and the result
 line ``{"ok": true, "device": {...}}``. The port imports no JAX.
@@ -872,6 +905,8 @@ def bandwidths(csr, A):
 def launch_counters():
     """name -> (module, attribute) of every kernel's launch count."""
     from tpusparse_torch.kernels import (
+        bsr,
+        dia_nmajor,
         dia_stream,
         ell_spmm,
         merge_spmv,
@@ -887,7 +922,9 @@ def launch_counters():
             "K3d": (spmm_merge, "LAUNCHES_F64"),
             "K4d": (ell_spmm, "LAUNCHES_F64"),
             "K5d": (dia_stream, "PLANES_LAUNCHES_F64"),
-            "K6": (permute, "LAUNCHES")}
+            "K6": (permute, "LAUNCHES"),
+            "K7": (dia_nmajor, "LAUNCHES"),
+            "K8": (bsr, "LAUNCHES"), "K8d": (bsr, "LAUNCHES_F64")}
 
 
 @contextlib.contextmanager
@@ -1042,7 +1079,7 @@ def true_residuals(C, B, X):
             ).cpu().numpy()
 
 
-def multicg(tag, solver, prep_ms, solve, C, B, twice=True):
+def multicg(tag, solver, prep_ms, solve, C, B, twice=True, phase=13):
     """One solver of the ``cpu_multicg`` comparison: ``solve()`` returns
     (result, X in the original order); run twice (the second timed) or
     once; every lane converged with a float64 true residual < 1e-4 on
@@ -1063,7 +1100,8 @@ def multicg(tag, solver, prep_ms, solve, C, B, twice=True):
     check((tr < TRUE_RESIDUAL_MAX).all(),
           f"{tag} {solver}: float64 true residuals {tr}")
     per = ms / max(res.iterations, 1)
-    print(f"[13] {tag} {solver}: {res.iterations} iters, prep {prep_ms:.1f} "
+    print(f"[{phase}] {tag} {solver}: {res.iterations} iters, prep "
+          f"{prep_ms:.1f} "
           f"ms, solve {ms:.1f} ms ({per:.4f} ms/iteration), converged=True, "
           f"float64 true residual max {tr.max():.3e}", flush=True)
     return res.iterations, per, float(tr.max())
@@ -1088,12 +1126,15 @@ EXACT_FEM_ITERS = 300
 def preconditioned_phase(gen, reset_counts, read_counts):
     """[13] The ``cpu_multicg`` comparison with ``reorder='auto'`` at tol
     1e-5, each solver given the ``ReorderedPlan`` (B in and X out through
-    K6) and a preconditioner built from ``A.permuted(csr)``:
+    K6) and a preconditioner built from ``A.permuted(csr)``, declared in
+    the plan's order (``perm=A.perm``):
     (a) scrambled lap3d-128, float32, L = 16: CG, and PCG with Jacobi
         IC(0) (two sweeps); the C++ factorization's time and depth;
     (b) scrambled lap3d-64, float32, L = 16: SPAI-CG with its build time
         (host structure, batched QR on the card), exact IC(0)-PCG (level
         scheduled) and Jacobi IC(0)-PCG with ms per application, and CG;
+        and the JAX package's call, Jacobi IC(0) of the matrix as given,
+        in the caller's order, applied behind K6;
     (c) fem2d-30000 in float64, L = 1: CG and Jacobi IC(0)-PCG to tol,
         each run once; exact IC(0)-PCG for ``EXACT_FEM_ITERS``
         iterations, its float64 true residual held to its recurrence.
@@ -1124,11 +1165,12 @@ def preconditioned_phase(gen, reset_counts, read_counts):
               flush=True)
         return Lf, ms
 
-    def jacobi(tag, Lf, L, dtype, seed):
-        """Jacobi IC(0), its strict triangles held against their plain
-        versions at the solve's shape."""
+    def jacobi(tag, Lf, L, dtype, seed, perm=None):
+        """Jacobi IC(0) (of a factor in the order ``perm`` declares),
+        its strict triangles held against their plain versions at the
+        solve's shape."""
         prec, ms = timed(lambda: make_ic0_preconditioner(
-            Lf, 2, num_rhs=L, dtype=dtype, device="cuda"))
+            Lf, 2, num_rhs=L, dtype=dtype, device="cuda", perm=perm))
         tdt = torch.float64 if dtype == np.float64 else torch.float32
         for side, solver in (("lower", prec.fwd), ("upper", prec.bwd)):
             merge_vs_plain(13, f"{tag} Jacobi {side} strict triangle",
@@ -1170,7 +1212,7 @@ def preconditioned_phase(gen, reset_counts, read_counts):
     out["a", "cg"] = multicg(tag, "cg", plan_ms, solve(cg_solve_multi, A, B),
                              C, B)
     Lf, f_ms = factor(tag, csr_p)
-    prec, p_ms = jacobi(tag, Lf, L_MULTI, np.float32, 501)
+    prec, p_ms = jacobi(tag, Lf, L_MULTI, np.float32, 501, A.perm)
     out["a", "pcg"] = multicg(tag, "pcg_ic0 (2 Jacobi sweeps)", f_ms + p_ms,
                               solve(pcg_solve_multi, A, B, prec), C, B)
     del A, csr, csr_p, C, B, Lf, prec
@@ -1206,15 +1248,17 @@ def preconditioned_phase(gen, reset_counts, read_counts):
     out["b", "cg"] = multicg(tag, "cg", plan_ms, solve(cg_solve_multi, A, B),
                              C, B)
     out["b", "spai"] = multicg(tag, "spai_cg", spai_ms + mp_ms,
-                               solve(spai_cg_solve_multi, A, Mp, B), C, B)
+                               solve(spai_cg_solve_multi, A, Mp, B,
+                                     perm=A.perm), C, B)
     Lf, f_ms = factor(tag, csr_p)
     precs = {}
     Bp = A.apply_perm(B)
     for name, make in (("exact IC(0), level-scheduled",
                         lambda: timed(lambda: make_exact_ic0_preconditioner(
-                            Lf))),
+                            Lf, perm=A.perm))),
                        ("Jacobi IC(0), 2 sweeps",
-                        lambda: jacobi(tag, Lf, L_MULTI, np.float32, 512))):
+                        lambda: jacobi(tag, Lf, L_MULTI, np.float32, 512,
+                                       A.perm))):
         prec, p_ms = make()
         app = min(timed(lambda: prec(Bp))[1] for _ in range(3))
         print(f"[13] {tag} {name}: built in {p_ms:.1f} ms, {app:.3f} ms per "
@@ -1226,7 +1270,15 @@ def preconditioned_phase(gen, reset_counts, read_counts):
         out["b", key] = multicg(tag, f"pcg_ic0 ({name})", prep,
                                 solve(pcg_solve_multi, A, B, prec),
                                 C, B) + (app,)
-    del A, csr, csr_p, C, B, Bp, Lf, precs, M, Mp
+    # the JAX package's call: IC(0) of the matrix as given, in the
+    # caller's order, applied behind K6 (apply_inv in, apply_perm out)
+    Lc, fc_ms = factor(f"{tag} (caller's order)", csr)
+    prec, p_ms = jacobi(f"{tag} (caller's order)", Lc, L_MULTI, np.float32,
+                        513)
+    out["b", "pcg_caller"] = multicg(
+        tag, "pcg_ic0 (Jacobi IC(0) in the caller's order, behind K6)",
+        fc_ms + p_ms, solve(pcg_solve_multi, A, B, prec), C, B)
+    del A, csr, csr_p, C, B, Bp, Lf, Lc, prec, precs, M, Mp
     torch.cuda.empty_cache()
     # (c) the fem2d-30000 float64 acceptance
     tag = "fem2d-30000 float64"
@@ -1238,14 +1290,15 @@ def preconditioned_phase(gen, reset_counts, read_counts):
     out["c", "cg"] = multicg(tag, "cg", plan_ms, solve(
         cg_solve_multi, A, B, max_iters=FEM_MAX_ITERS), C, B, False)
     Lf, f_ms = factor(tag, csr_p)
-    prec, p_ms = jacobi(tag, Lf, 1, np.float64, 520)
+    prec, p_ms = jacobi(tag, Lf, 1, np.float64, 520, A.perm)
     out["c", "pcg"] = multicg(tag, "pcg_ic0 (Jacobi IC(0), 2 sweeps)",
                               f_ms + p_ms, solve(
                                   pcg_solve_multi, A, B, prec,
                                   max_iters=FEM_MAX_ITERS), C, B, False)
     jrel = float(last["res"].history[EXACT_FEM_ITERS - 1])
     name = "pcg_ic0 (exact IC(0), level-scheduled)"
-    prec, p_ms = timed(lambda: make_exact_ic0_preconditioner(Lf))
+    prec, p_ms = timed(lambda: make_exact_ic0_preconditioner(Lf,
+                                                             perm=A.perm))
     Bp = A.apply_perm(B)
     app = min(timed(lambda: prec(Bp))[1] for _ in range(3))
     print(f"[13] {tag} exact IC(0), level-scheduled: built in {p_ms:.1f} ms, "
@@ -1270,6 +1323,363 @@ def preconditioned_phase(gen, reset_counts, read_counts):
     print("[13] iterations: " + ", ".join(
         f"({k[0]}) {k[1]} {v[0]}" for k, v in out.items()))
     return read_counts("preconditioned path", ("K6", "K3", "K3d"))
+
+
+K7_LS = (2, 3, 16, 32, 100)
+
+
+def k7_vs_plain(name, csr, L, seed):
+    """[2] K7 on an n-major plan for L right-hand sides: bitwise equal to
+    its plain version and to K1 on X.T, transposed back. Returns max
+    |K7 - plain| (0)."""
+    from tpusparse_torch import plan_kind, plan_matrix
+    from tpusparse_torch.kernels import dia_nmajor, dia_stream
+
+    A = plan_matrix(csr, "nmajor", L=L, device="cuda")
+    check(plan_kind(A) == "dia_nmajor", f"{name}: an n-major plan")
+    X = rand(seed, (csr.num_cols, L))
+    Y = dia_nmajor.nmajor_matmat(A.dia, X)
+    Yp = dia_nmajor.spmm_nmajor_plain(A.dia, X)
+    Y1 = dia_stream.spmm_dia_stream_t(A.dia.band, X.T.contiguous()).T
+    what = f"K7 {name} ({csr.num_rows} rows) L={L}"
+    check(Y.shape == (csr.num_rows, L) and torch.isfinite(Y).all(),
+          f"{what}: finite Y of shape ({csr.num_rows}, {L})")
+    check(torch.equal(Y, Yp), f"{what}: bitwise equal to plain")
+    check(torch.equal(Y, Y1), f"{what}: bitwise equal to K1 on X.T")
+    print(f"[2] {what}: bitwise equal to its plain version and to K1 on "
+          f"X.T (plan L {A.dia.L})")
+    return float((Y - Yp).abs().max())
+
+
+def bsr_row_bound(A, C64, X, u):
+    """(float64 A X on the CSR ``C64``, 2 (w_i + 2) u |A||X|) for the BSR
+    plan ``A``: w_i the stored entries of row i (bc per block of its
+    block row)."""
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    args = (C64.num_rows, C64.row_offsets, C64.col_indices)
+    Y64 = csr_matmat(*args, C64.values, X.double())
+    AX = csr_matmat(*args, C64.values.abs(), X.double().abs())
+    per = (A.block_row_offsets[1:] - A.block_row_offsets[:-1]).double()
+    w = (per * A.block_cols).repeat_interleave(A.block_rows)[:A.num_rows]
+    return Y64, 2 * (w[:, None] + 2) * u * AX
+
+
+def bsr_fixtures(gen):
+    """(name, host CSR) of K8's checks: full (8, 128) blocks, partial
+    fill, edges cut mid-block with an emptied block row, and nnz = 0."""
+    from tpusparse_torch import CsrMatrix
+
+    S = gen.make_block_random(40, 3, seed=4).to_csr().to_scipy()
+    S = S[:317, :5000].tolil()
+    S[16:24, :] = 0
+    return [
+        ("block-64x4", gen.make_block_random(64, 4).to_csr()),
+        ("block-64x4-fill0.3", gen.make_block_random(64, 4, fill=0.3,
+                                                     seed=1).to_csr()),
+        ("edge-317x5000", CsrMatrix.from_scipy(S)),
+        ("nnz-0", CsrMatrix(24, 300, np.zeros(25, np.int32),
+                            np.zeros(0, np.int32), np.zeros(0))),
+    ]
+
+
+def k8_vs_plain(name, csr, dtype, seed):
+    """[2] K8 (float32) or K8d (float64) on a 'bsr' plan at each L of
+    SPMM_LS: within 2(w_i + 2)u|A||X| of its plain version and of a
+    float64 CSR product, two runs bitwise equal. Returns max |kernel -
+    plain|."""
+    from tpusparse_torch import plan_kind, plan_matrix
+    from tpusparse_torch.kernels import bsr
+
+    A = plan_matrix(csr, "bsr", dtype=dtype, device="cuda")
+    check(plan_kind(A) == "bsr", f"{name}: a bsr plan")
+    C64 = csr.to("cuda", torch.float64)
+    f64 = dtype == np.float64
+    kernel, u = ("K8d", U64) if f64 else ("K8", U)
+    worst = 0.0
+    for L in SPMM_LS:
+        X = (rand64 if f64 else rand)(seed + L, (csr.num_cols, L))
+        Y1, Y2 = bsr.bsr_matmat(A, X), bsr.bsr_matmat(A, X)
+        Yp = bsr.bsr_spmm_plain(A, X)
+        Y64, bound = bsr_row_bound(A, C64, X, u)
+        what = f"{kernel} {name} L={L}"
+        check(Y1.shape == (csr.num_rows, L) and Y1.dtype == X.dtype
+              and torch.isfinite(Y1).all(), f"{what}: finite Y of X's type")
+        check(torch.equal(Y1, Y2), f"{what}: two runs bitwise equal")
+        check(((Y1.double() - Yp.double()).abs() <= bound).all(),
+              f"{what}: within 2(w_i+2)u|A||X| of plain")
+        check(((Y1.double() - Y64).abs() <= bound).all(),
+              f"{what}: within 2(w_i+2)u|A||X| of a float64 CSR product")
+        if Y1.numel():
+            worst = max(worst, float((Y1 - Yp).abs().max()))
+    print(f"[2] {kernel} {name} {csr.num_rows}x{csr.num_cols} nnz "
+          f"{csr.nnz}, {A.num_blocks} blocks L={list(SPMM_LS)}: max|"
+          f"{kernel}-plain| {worst:.3e}, within 2(w_i+2)u|A||X| of plain "
+          f"and of float64, bitwise repeat PASS")
+    return worst
+
+
+def nmajor_phase(gen, lap160, reset_counts, read_counts):
+    """[14] The n-major path at full width, lap3d-160 at L = 16:
+    ``spmm`` on ``strategy='nmajor'`` (K7, (n, L) with no transposes)
+    and on AUTO (K1 behind the (n, L) <-> (L, n) transposes), each
+    checked against float64, held bitwise against its plain version (and
+    K7 against K1 on X.T), and timed, with K7 alone, beside the plain
+    versions, ``torch.sparse`` and the bound; ``cg_solve_multi`` on both
+    plans (iterations within 1, ms/iteration); Jacobi IC(0)-PCG at L = 16
+    on natural-order lap3d-128 on both plans (the n-major plan hands the
+    preconditioner (n, L) blocks, AUTO behind two transposes an
+    iteration), with K7 on B and K5 on the Jacobi strict triangles held
+    against their plain versions. Returns (launch counts, K7 timings)."""
+    from tpusparse_torch import (
+        cg_solve_multi,
+        ic0_factorize,
+        make_ic0_preconditioner,
+        pcg_solve_multi,
+        plan_kind,
+        plan_matrix,
+        spmm,
+    )
+    from tpusparse_torch.bench.models import dia_masked_bytes, spmv_flops
+    from tpusparse_torch.bench.timing import cuda_time_ms
+    from tpusparse_torch.formats.dia import DiaDevice
+    from tpusparse_torch.kernels import dia_nmajor, dia_stream
+    from tpusparse_torch.ops.hybrid import HybridPlan
+    from tpusparse_torch.ops.reference import csr_matmat
+
+    reset_counts()
+    n = lap160.num_rows
+    N = plan_matrix(lap160, "nmajor", L=L_MULTI, device="cuda")
+    A = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda")
+    check(plan_kind(N) == "dia_nmajor" and N.dia.L == L_MULTI,
+          "lap3d-160 'nmajor' at L=16 plans K7")
+    check(plan_kind(A) == "dia" and isinstance(
+        A.dia, dia_stream.DiaStreamDevice), "lap3d-160 AUTO plans K1")
+    C = lap160.to("cuda")
+    X = rand(600, (n, L_MULTI))
+    XT = X.T.contiguous()
+    Y64, bound, _ = row_bound(C, X)
+    Ys = []
+    for label, P in (("nmajor (K7)", N), ("auto (K1, transposes)", A)):
+        Y = spmm(P, X)
+        check(Y.shape == (n, L_MULTI) and torch.isfinite(Y).all()
+              and ((Y.double() - Y64).abs() <= bound).all(),
+              f"lap3d-160 spmm {label}: Y within (nnz_i+2)u|A||X| of "
+              "float64")
+        Ys.append(Y)
+    with uncounted():
+        check(torch.equal(Ys[0], dia_nmajor.spmm_nmajor_plain(N.dia, X)),
+              "lap3d-160 L=16 K7 (spmm on the n-major plan): bitwise equal "
+              "to its plain version")
+        check(torch.equal(Ys[1], dia_stream.spmm_dia_masked_plain(
+            A.dia, XT).T), "lap3d-160 L=16 K1 (spmm on the AUTO plan): "
+              "bitwise equal to its plain version")
+    check(torch.equal(Ys[0], Ys[1]), "lap3d-160 L=16: K7 bitwise equal to "
+          "K1 on X.T")
+    print(f"[14] lap3d-160 L={L_MULTI}: K7 bitwise equal to its plain "
+          "version and to K1 on X.T (AUTO's spmm); K1 bitwise equal to its "
+          "plain version", flush=True)
+    del Ys, Y
+    lib = library_csr(C)
+    fl = spmv_flops(lap160.nnz, L_MULTI)
+    nbytes = dia_masked_bytes(n, L_MULTI)
+    with uncounted():
+        lib_ms = cuda_time_ms(lambda: lib @ X)
+        rows = {
+            "K7 alone on (n, L)": time_pair(
+                lambda: dia_nmajor.nmajor_matmat(N.dia, X),
+                lambda: dia_nmajor.spmm_nmajor_plain(N.dia, X)),
+            "spmm on the n-major plan (K7)": time_pair(
+                lambda: spmm(N, X),
+                lambda: dia_nmajor.spmm_nmajor_plain(N.dia, X)),
+            "spmm on the AUTO plan (K1 behind the transposes)": time_pair(
+                lambda: spmm(A, X),
+                lambda: dia_stream.spmm_dia_masked_plain(A.dia, XT).T),
+            "K1 alone on (L, n)": time_pair(
+                lambda: dia_stream.spmm_dia_stream_t(A.dia, XT),
+                lambda: dia_stream.spmm_dia_masked_plain(A.dia, XT)),
+        }
+    for what, t in rows.items():
+        t["library"] = lib_ms
+        t["bound"] = report(14, f"lap3d-160 L={L_MULTI} {what}", t, fl,
+                            nbytes)
+    del lib
+    X_true = torch.from_numpy(np.random.default_rng(36).standard_normal(
+        (n, L_MULTI))).cuda()
+    B = csr_matmat(C.num_rows, C.row_offsets, C.col_indices,
+                   C.values.double(), X_true).float()
+    cg = {label: run_cg_multi(f"lap3d-160 {label}", P, C, B, phase=14)
+          for label, P in (("nmajor (K7, (n, L) state)", N),
+                           ("auto (K1, (L, n) state)", A))}
+    (it_n, ms_n, _), (it_a, ms_a, _) = cg.values()
+    check(abs(it_n - it_a) <= 1, f"lap3d-160 cg_solve_multi: n-major {it_n}"
+          f" iterations within 1 of AUTO's {it_a}")
+    print(f"[14] lap3d-160 cg_solve_multi L={L_MULTI}: n-major {it_n} "
+          f"iterations, {ms_n:.4f} ms/iteration; AUTO {it_a}, {ms_a:.4f} "
+          "ms/iteration", flush=True)
+    del N, A, C, X, XT, Y64, bound, X_true, B
+    torch.cuda.empty_cache()
+    # Jacobi IC(0)-PCG on natural-order lap3d-128
+    lap128 = gen.make_laplacian_grid3d(128).to_csr()
+    N = plan_matrix(lap128, "nmajor", L=L_MULTI, device="cuda")
+    A = plan_matrix(lap128, "auto", L=L_MULTI, device="cuda")
+    C = lap128.to("cuda")
+    Lf, f_ms = timed(lambda: ic0_factorize(lap128))
+    prec, p_ms = timed(lambda: make_ic0_preconditioner(
+        Lf, 2, num_rhs=L_MULTI, dtype=np.float32, device="cuda"))
+    B = rand(610, (lap128.num_rows, L_MULTI))
+    BT = B.T.contiguous()
+    with uncounted():
+        check(torch.equal(dia_nmajor.nmajor_matmat(N.dia, B),
+                          dia_nmajor.spmm_nmajor_plain(N.dia, B)),
+              "lap3d-128 L=16 K7 on B: bitwise equal to its plain version")
+        for side, solver in (("lower", prec.fwd), ("upper", prec.bwd)):
+            S = solver.strict
+            what = f"lap3d-128 Jacobi {side} strict triangle"
+            check(isinstance(S, HybridPlan) and S.rest is None
+                  and isinstance(S.dia, DiaDevice),
+                  f"{what}: a pure value-plane plan (K5)")
+            check(torch.equal(dia_stream.spmm_dia_planes_t(S.dia, BT),
+                              dia_stream.spmm_dia_planes_plain(S.dia, BT)),
+                  f"{what}: K5 on B bitwise equal to its plain version")
+    print(f"[14] lap3d-128 L={L_MULTI}: K7 on B and K5 on both Jacobi strict "
+          "triangles bitwise equal to their plain versions", flush=True)
+    del BT
+
+    def pcg_on(P):
+        def run():
+            res = pcg_solve_multi(P, B, prec)
+            return res, res.x
+        return run
+
+    pcg = {label: multicg("lap3d-128", f"pcg_ic0 (2 Jacobi sweeps) on "
+                          f"{label}", f_ms + p_ms, pcg_on(P), C, B,
+                          phase=14)
+           for label, P in (("nmajor (K7, no transposes)", N),
+                            ("auto (K1, two transposes an iteration)", A))}
+    (it_n, ms_n, _), (it_a, ms_a, _) = pcg.values()
+    check(abs(it_n - it_a) <= 1, f"lap3d-128 Jacobi IC(0)-PCG: n-major "
+          f"{it_n} iterations within 1 of AUTO's {it_a}")
+    print(f"[14] lap3d-128 Jacobi IC(0)-PCG L={L_MULTI}: n-major {it_n} "
+          f"iterations, {ms_n:.4f} ms/iteration; AUTO {it_a}, {ms_a:.4f} "
+          "ms/iteration", flush=True)
+    counts = read_counts("n-major path", ("K7", "K1"))
+    return counts, rows["K7 alone on (n, L)"]
+
+
+def bsr_phase(gen, reset_counts, read_counts):
+    """[15] The BSR path at full width: ``make_block_random(8192, 4,
+    seed=0)`` (65,536 x 1,048,576, 33.5M nnz, 134 MB of float32 blocks)
+    through ``plan_matrix(..., 'bsr')``: ``spmv`` and ``spmm`` at L = 1
+    and 16 on K8, and on K8d in float64, each checked against a float64
+    product and its plain version under 2(w_i + 2)u|A||X| and timed
+    beside the plain version,
+    ``torch.sparse`` CSR, ``torch.sparse_bsr_tensor`` (where PyTorch
+    takes (8, 128) blocks on the card), the bound, and K3 on the merge
+    plan of the same matrix. Returns (launch counts, timings by
+    (kernel, L))."""
+    from tpusparse_torch import plan_kind, plan_matrix, spmm, spmv
+    from tpusparse_torch.bench.models import (
+        bound_ms,
+        bsr_bytes,
+        bsr_flops,
+        spmm_bytes,
+        spmv_flops,
+    )
+    from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
+    from tpusparse_torch.formats.bcsr import fill_estimate
+    from tpusparse_torch.kernels import bsr
+
+    (csr, ms) = timed(lambda: gen.make_block_random(8192, 4,
+                                                    seed=0).to_csr())
+    fe, fe_ms = timed(lambda: fill_estimate(csr, 8, 128))
+    print(f"[15] make_block_random(8192, 4): {csr.num_rows} x "
+          f"{csr.num_cols}, {csr.nnz} nnz, built in {ms:.1f} ms; "
+          f"fill_estimate(8, 128) {fe:.4f} ({fe_ms:.1f} ms; the JAX "
+          "package's AUTO gate plans BSR at >= 0.3)", flush=True)
+    reset_counts()
+    plans, plan_ms = {}, {}
+    for dt in (np.float32, np.float64):
+        plans[dt], plan_ms[dt] = timed(
+            lambda: plan_matrix(csr, "bsr", dtype=dt, device="cuda"))
+    B32, B64 = plans[np.float32], plans[np.float64]
+    check(plan_kind(B32) == "bsr" and plan_kind(B64) == "bsr"
+          and B64.blocks.dtype == torch.float64, "make_block_random: 'bsr' "
+          "plans in both types")
+    print(f"[15] bsr plans: {B32.num_blocks} (8, 128) blocks, fill ratio "
+          f"{B32.fill_ratio:.4f}, {B32.blocks.numel() * 4 / 1e6:.1f} MB of "
+          f"float32 blocks; planned in {plan_ms[np.float32]:.1f} ms "
+          f"(float64 {plan_ms[np.float64]:.1f} ms)", flush=True)
+    M = plan_matrix(csr, "merge", L=L_MULTI, device="cuda")
+    C64 = csr.to("cuda", torch.float64)
+    lib = library_csr(M)
+    lib64 = library_csr(C64)
+    try:
+        lib_bsr = torch.sparse_bsr_tensor(
+            B32.block_row_offsets, B32.block_col_indices, B32.blocks,
+            size=(csr.num_rows, csr.num_cols))
+        lib_bsr @ torch.zeros(csr.num_cols, 1, device="cuda")
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"[15] torch.sparse_bsr_tensor with (8, 128) blocks on the "
+              f"card: not taken ({type(e).__name__}: "
+              f"{str(e).splitlines()[0][:160]})", flush=True)
+        lib_bsr = None
+    out = {}
+    for L in (1, L_MULTI):
+        for f64 in (False, True):
+            kernel, P, u = ("K8d", B64, U64) if f64 else ("K8", B32, U)
+            X = (rand64 if f64 else rand)(620 + L, (csr.num_cols, L))
+            x = X[:, 0].contiguous()
+            Y = spmv(P, x)[:, None] if L == 1 else spmm(P, X)
+            Y64, bound = bsr_row_bound(P, C64, X, u)
+            what = f"make_block_random(8192, 4) {kernel} L={L}"
+            check(Y.shape == (csr.num_rows, L) and Y.dtype == X.dtype
+                  and torch.isfinite(Y).all(), f"{what}: finite Y")
+            check(((Y.double() - Y64).abs() <= bound).all(),
+                  f"{what}: within 2(w_i+2)u|A||X| of a float64 product")
+            with uncounted():
+                Yp = bsr.bsr_spmm_plain(P, X)
+            err = float((Y - Yp).abs().max())
+            check(((Y.double() - Yp.double()).abs() <= bound).all(),
+                  f"{what}: within 2(w_i+2)u|A||X| of its plain version")
+            print(f"[15] {what}: max|{kernel}-plain| {err:.3e}, within "
+                  "2(w_i+2)u|A||X| of its plain version and of float64",
+                  flush=True)
+            del Yp
+            call = ((lambda: spmv(P, x)) if L == 1
+                    else (lambda: spmm(P, X)))
+            with uncounted():
+                t = time_pair(call, lambda: bsr.bsr_spmm_plain(P, X))
+                t["library"] = cuda_time_ms(
+                    lambda: (lib64 if f64 else lib) @ X)
+                extra = ""
+                if not f64:
+                    k3 = (cuda_time_ms(lambda: spmm(M, X)),
+                          graph_time_ms(lambda: spmm(M, X)))
+                    k3_bound = bound_ms(spmv_flops(csr.nnz, L), spmm_bytes(
+                        csr.nnz, csr.num_rows, csr.num_cols, L))[0]
+                    extra = (f"; K3 on the merge plan {k3[0]:.4f} ms/call, "
+                             f"device {k3[1]:.4f} ms (CSR bound "
+                             f"{k3_bound:.4f} ms)")
+                    if lib_bsr is not None:
+                        bsr_ms = cuda_time_ms(lambda: lib_bsr @ X)
+                        extra += f"; torch.sparse_bsr_tensor {bsr_ms:.4f} "\
+                            "ms/call"
+            t["bound"] = report(15, what, t,
+                                bsr_flops(P.num_blocks, 8, 128, L),
+                                bsr_bytes(P.num_blocks, 8, 128, csr.num_rows,
+                                          csr.num_cols, L, 8 if f64 else 4),
+                                fp64=f64)
+            if extra:
+                print(f"[15] {what}{extra}", flush=True)
+            out[kernel, L] = t
+            del X, x, Y, Y64, bound
+    counts = read_counts("BSR path", ("K8", "K8d"))
+    del plans, B32, B64, M, C64, lib, lib64, lib_bsr
+    torch.cuda.empty_cache()
+    return counts, out
+
 
 
 def main() -> int:
@@ -1346,6 +1756,21 @@ def main() -> int:
     check(isinstance(A12, ReorderedPlan) and A12.order == "rcm",
           "scrambled lap3d-160: reorder='auto' plans RCM")
     k6_err = k6_checks(A12.perm.cpu().numpy())
+    # K7 on n-major plans; K8 and K8d on bsr plans
+    k7_err = max(
+        k7_vs_plain(name, csr, L, 640 + L)
+        for name, csr in (("lap3d-48", lap48),
+                          ("lap2d-300", gen.make_laplacian_grid2d(
+                              300).to_csr()),
+                          ("lap3d-47", gen.make_laplacian_grid3d(
+                              47).to_csr()))
+        for L in K7_LS)
+    bsr_fx = bsr_fixtures(gen)
+    k8_err = max(k8_vs_plain(name, csr, np.float32, 660 + 10 * i)
+                 for i, (name, csr) in enumerate(bsr_fx))
+    k8d_err = max(k8_vs_plain(name, csr, np.float64, 700 + 10 * i)
+                  for i, (name, csr) in enumerate(bsr_fx))
+    del bsr_fx
     torch.cuda.synchronize()
     print(f"[2] done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -1604,12 +2029,22 @@ def main() -> int:
           f"within 1; cg_solve_multi L={L_MULTI} {it_multi160} unscrambled, "
           f"reordered within 1")
     path7 = read_counts("reordered path", ("K6", "K2", "K3"))
-    del A12, C12, B12, X_true, scr160, lap160
+    del A12, C12, B12, X_true, scr160
     torch.cuda.empty_cache()
 
     # [13] the preconditioned solvers, counted from 0 again
     path8 = preconditioned_phase(gen, reset_counts, read_counts)
-    paths = (path1, path2, path3, path4, path5, path6, path7, path8)
+    torch.cuda.empty_cache()
+
+    # [14] the n-major path at full width, counted from 0 again
+    path9, t14 = nmajor_phase(gen, lap160, reset_counts, read_counts)
+    del lap160
+    torch.cuda.empty_cache()
+
+    # [15] the BSR path at full width, counted from 0 again
+    path10, t15 = bsr_phase(gen, reset_counts, read_counts)
+    paths = (path1, path2, path3, path4, path5, path6, path7, path8, path9,
+             path10)
     print("[5] main-path launches: " + ", ".join(
         f"{k} {sum(p[k] for p in paths)}" for k in counters))
 
@@ -1686,6 +2121,24 @@ def main() -> int:
               "tpusparse/kernels/permute.py:206", "K6", k6_err,
               t12[L_MULTI], f"lap3d-160 RCM permutation L={L_MULTI}, "
               "device time"),
+        entry("K7 n-major masked DIA SpMM", "dia_nmajor.cu",
+              "tpusparse/kernels/dia_nmajor.py:286", "K7", k7_err, t14,
+              f"lap3d-160 spmm L={L_MULTI} on (n, L), device time"),
+        entry("K8 BSR panel SpMV", "bsr.cu", "tpusparse/kernels/bsr.py:81",
+              "K8", k8_err, t15["K8", 1],
+              "make_block_random(8192, 4) spmv L=1, device time"),
+        entry("K8 BSR panel SpMM", "bsr.cu", "tpusparse/kernels/bsr.py:81",
+              "K8", k8_err, t15["K8", L_MULTI],
+              f"make_block_random(8192, 4) spmm L={L_MULTI}, device time"),
+        # K8d ports the JAX package's float64 BSR product (XLA's einsum
+        # and segment sum; no pallas_call)
+        entry("K8d BSR panel SpMV, float64", "bsr.cu",
+              "tpusparse/kernels/bsr.py:165", "K8d", k8d_err, t15["K8d", 1],
+              "make_block_random(8192, 4) spmv float64 L=1, device time"),
+        entry("K8d BSR panel SpMM, float64", "bsr.cu",
+              "tpusparse/kernels/bsr.py:165", "K8d", k8d_err,
+              t15["K8d", L_MULTI], f"make_block_random(8192, 4) spmm "
+              f"float64 L={L_MULTI}, device time"),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

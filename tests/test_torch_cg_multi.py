@@ -191,3 +191,98 @@ def test_entry_cg_step_matches_jax():
         assert np.all(np.linalg.norm(port - jax_v, axis=0)
                       <= 1e-5 * np.linalg.norm(jax_v, axis=0))
     np.testing.assert_allclose(rs_new.numpy(), rsj, rtol=1e-5)
+
+
+def _scrambled(width=16, seed=4):
+    """(JAX host CSR of a scrambled lap2d, the port's CsrMatrix of it)."""
+    from tpusparse.ops.reorder import permute_symmetric as jpermute
+    from tpusparse_torch import CsrMatrix
+
+    j = jgen.make_laplacian_grid2d(width).to_csr()
+    j = jpermute(j, np.random.default_rng(seed).permutation(j.num_rows))
+    return j, CsrMatrix(j.num_rows, j.num_cols, np.asarray(j.row_offsets),
+                        np.asarray(j.col_indices), np.asarray(j.values))
+
+
+def _same_solve(r, rj, what):
+    """The same converged flag, iterations within 1, history within 1e-3
+    up to the shorter run, and x within 1e-4."""
+    assert bool(np.all(np.asarray(r.converged))) \
+        == bool(np.all(np.asarray(rj.converged))), what
+    assert abs(int(r.iterations) - int(rj.iterations)) <= 1, what
+    k = min(int(r.iterations), int(rj.iterations))
+    np.testing.assert_allclose(r.history[:k].numpy(),
+                               np.asarray(rj.history)[:k], rtol=1e-3)
+    x, xj = r.x.numpy().astype(np.float64), np.asarray(rj.x, np.float64)
+    assert np.linalg.norm(x - xj) <= 1e-4 * np.linalg.norm(xj), what
+
+
+# (case, reorder): the warm start on a plain and on a reordered plan
+@pytest.mark.parametrize("reorder", [None, "rcm"])
+def test_cg_solve_x0_matches_jax(reorder):
+    """``cg_solve(..., x0=...)``: r = b - A x0, the convergence threshold
+    on ||b||; on a ReorderedPlan the JAX dispatch route (the plan's spmv
+    permutes around each product), as the JAX package takes it."""
+    from tpusparse.solvers.cg import cg_solve as jcg_solve
+    from tpusparse_torch import cg_solve
+
+    j, c = _scrambled()
+    rng = np.random.default_rng(40)
+    b = rng.standard_normal(j.num_rows)
+    x0 = 0.5 * rng.standard_normal(j.num_rows)
+    # float64: the JAX package permutes float64 vectors with XLA's gather
+    # (its float32 path runs the interpret-mode permute kernel per
+    # product on this unjitted route)
+    jA = jplan(j, "reference", dtype=np.float64, reorder=reorder)
+    A = plan_matrix(c, "merge", dtype=np.float64, reorder=reorder,
+                    device="cpu")
+    rj = jcg_solve(jA, b, x0=x0, record_history=True, max_iters=500)
+    r = cg_solve(A, torch.from_numpy(b), x0=torch.from_numpy(x0),
+                 record_history=True, max_iters=500)
+    _same_solve(r, rj, f"x0 reorder={reorder}")
+    # an exact warm start takes no iteration
+    r0 = cg_solve(A, torch.from_numpy(b), x0=r.x)
+    assert r0.iterations <= 1
+
+
+def test_cg_solve_matvec_matches_jax():
+    """A matrix-free ``matvec`` replaces the plan's product."""
+    from tpusparse.ops.spmv import spmv as jspmv
+    from tpusparse.solvers.cg import cg_solve as jcg_solve
+    from tpusparse_torch import cg_solve, spmv
+
+    j, c = _scrambled()
+    b = np.random.default_rng(41).standard_normal(j.num_rows).astype(
+        np.float32)
+    jA = jplan(j, "reference", dtype=np.float32)
+    A = plan_matrix(c, "merge", device="cpu")
+    rj = jcg_solve(None, b, matvec=lambda v: jspmv(jA, v),
+                   record_history=True, max_iters=500)
+    r = cg_solve(None, torch.from_numpy(b), matvec=lambda v: spmv(A, v),
+                 record_history=True, max_iters=500)
+    _same_solve(r, rj, "matvec")
+
+
+@pytest.mark.parametrize("reorder", [None, "rcm"])
+def test_cg_solve_multi_matmat_matches_jax(reorder):
+    """``cg_solve_multi(..., matmat=...)``: the custom product replaces
+    the plan's, with no permuted-space solve on a reordered plan."""
+    from tpusparse.ops.spmv import spmm as jspmm
+
+    j, c = _scrambled()
+    B = _B(j.num_rows, 3, seed=42)
+    jA = jplan(j, "reference", dtype=np.float32)
+    M = plan_matrix(c, "merge", L=3, device="cpu")
+    A = plan_matrix(c, "merge", L=3, reorder=reorder, device="cpu")
+    rj = jcg_solve_multi(jplan(j, "reference", dtype=np.float32,
+                               reorder=reorder), B,
+                         matmat=lambda V: jspmm(jA, V), max_iters=500)
+    calls = []
+
+    def matmat(V):
+        calls.append(V.shape)
+        return spmm(M, V)
+
+    r = cg_solve_multi(A, torch.from_numpy(B), matmat=matmat, max_iters=500)
+    assert len(calls) == r.iterations
+    _same_solve(r, rj, f"matmat reorder={reorder}")

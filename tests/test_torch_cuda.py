@@ -584,14 +584,169 @@ def test_preconditioned_solvers_on_card_match_cpu(cuda):
             spai_cg_solve_multi(A0, plan_matrix(M, "auto", L=4, device=dev),
                                 B.to(dev)),
             cg_solve_multi(A, B.to(dev)),
-            # in the permuted space, with the reordered matrix's factor
+            # in the permuted space, with the reordered matrix's factor,
+            # declared in the plan's order
             pcg_solve_multi(A, B.to(dev), make_ic0_preconditioner(
                 ic0_factorize(A.permuted(csr)), num_rhs=4, dtype=np.float32,
-                device=dev)))
+                device=dev, perm=A.perm)))
         if dev == cuda:
             assert permute.LAUNCHES == before + 4
+            # the caller's order, behind K6: two more launches an iteration
+            before = permute.LAUNCHES
+            res = pcg_solve_multi(A, B.to(dev), make_ic0_preconditioner(
+                Lf, num_rhs=4, dtype=np.float32, device=dev))
+            assert permute.LAUNCHES == before + 2 + 2 * (res.iterations + 1)
+            assert abs(res.iterations - out[dev][0].iterations) <= 1
     for g, c in zip(out[cuda], out["cpu"]):
         assert bool(g.converged.all()) and g.x.is_cuda
         assert abs(g.iterations - c.iterations) <= 1
         assert torch.linalg.norm(g.x.cpu() - c.x) \
             <= 1e-3 * torch.linalg.norm(c.x)
+
+
+# --- K7 (n-major masked DIA), K8 and K8d (BSR panels) ----------------------
+
+NMAJOR_CASES = {
+    "lap3d-16": lambda: gen.make_laplacian_grid3d(16).to_csr(),
+    "lap2d-33": lambda: gen.make_laplacian_grid2d(33).to_csr(),  # 1089 rows
+}
+
+
+@pytest.mark.parametrize("L", [2, 3, 16, 100])
+@pytest.mark.parametrize("name", list(NMAJOR_CASES))
+def test_k7_matches_plain_and_k1_bitwise(cuda, name, L):
+    from tpusparse_torch.kernels import dia_nmajor
+
+    A = plan_matrix(NMAJOR_CASES[name](), "nmajor", L=L, device=cuda)
+    D = A.dia
+    X = _x(None, L, cuda, (D.num_cols, L))
+    before = dia_nmajor.LAUNCHES
+    Y1 = dia_nmajor.nmajor_matmat(D, X)
+    Y2 = dia_nmajor.nmajor_matmat(D, X)
+    assert dia_nmajor.LAUNCHES == before + 2
+    assert Y1.shape == (D.num_rows, L) and torch.equal(Y1, Y2)
+    assert torch.equal(Y1, dia_nmajor.spmm_nmajor_plain(D, X))
+    YT = dia_stream.spmm_dia_stream_t(D.band, X.T.contiguous())
+    assert torch.equal(Y1, YT.T)
+    # through spmm / spmv on the plan, fewer columns than its L
+    assert torch.equal(spmm(A, X[:, :1].contiguous())[:, 0],
+                       spmv(A, X[:, 0].contiguous()))
+
+
+def test_k7_refuses_wrong_operands(cuda):
+    from tpusparse_torch.kernels import dia_nmajor
+
+    A = plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=4, device=cuda)
+    n = A.dia.num_rows
+    with pytest.raises(ValueError, match="L <= 4"):
+        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(n, 5, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(
+            n, 2, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="same device"):
+        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(n, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(2, n, device=cuda).T)
+    with pytest.raises(ValueError):
+        plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=1, device=cuda)
+
+
+def test_new_kernels_do_not_fall_back_without_the_library(cuda,
+                                                          monkeypatch):
+    """A CUDA tensor launches the kernel or raises: with no library to
+    load, K7, K8 and K8d raise instead of running their plain versions."""
+    from tpusparse_torch.kernels import _build, bsr, dia_nmajor
+
+    A = plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=4, device=cuda)
+    Bf = plan_matrix(gen.make_block_random(4, 2).to_csr(), "bsr",
+                     device=cuda)
+    Bd = plan_matrix(gen.make_block_random(4, 2).to_csr(), "bsr",
+                     dtype=np.float64, device=cuda)
+
+    def missing():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "library", missing)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(A.dia.num_rows, 2,
+                                                    device=cuda))
+    for P, dt in ((Bf, torch.float32), (Bd, torch.float64)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            bsr.bsr_matmat(P, torch.zeros(P.num_cols, 3, device=cuda,
+                                          dtype=dt))
+
+
+def _bsr_cases():
+    """name -> host CSR of K8's checks: full (8, 128) blocks, partial
+    fill, a cut edge with an emptied block row, and nnz = 0."""
+    def edge():
+        S = gen.make_block_random(20, 3, seed=4).to_csr().to_scipy()
+        S = S[:155, :2500].tolil()
+        S[16:24, :] = 0
+        return CsrMatrix.from_scipy(S)
+
+    return {
+        "block-16x4": lambda: gen.make_block_random(16, 4).to_csr(),
+        "block-12x3-fill0.3": lambda: gen.make_block_random(
+            12, 3, fill=0.3, seed=2).to_csr(),
+        "edge-155x2500": edge,
+        "nnz-0": lambda: CsrMatrix(24, 300, np.zeros(25, np.int32),
+                                   np.zeros(0, np.int32), np.zeros(0)),
+    }
+
+
+BSR_CASES = _bsr_cases()
+
+
+def _check_k8(A, X):
+    """K8 (K8d) on the BCSR operand ``A``: two runs bitwise equal, within
+    2(w_i + 2)u|A||X| of its plain version and of float64."""
+    from tpusparse_torch.kernels import bsr
+
+    tdt, L = X.dtype, X.shape[1]
+    dtype = np.float32 if tdt == torch.float32 else np.float64
+    module_count = "LAUNCHES" if dtype == np.float32 else "LAUNCHES_F64"
+    before = getattr(bsr, module_count)
+    Y1 = bsr.bsr_matmat(A, X)
+    Y2 = bsr.bsr_matmat(A, X)
+    assert getattr(bsr, module_count) == before + 2
+    assert Y1.shape == (A.num_rows, L) and Y1.dtype == tdt
+    assert torch.equal(Y1, Y2)
+    Yp = bsr.bsr_spmm_plain(A, X)
+    A64 = dataclasses.replace(A, blocks=A.blocks.double())
+    Y64 = bsr.bsr_spmm_plain(A64, X.double())
+    AX = bsr.bsr_spmm_plain(dataclasses.replace(A64, blocks=A64.blocks.abs()),
+                            X.double().abs())
+    per = (A.block_row_offsets[1:] - A.block_row_offsets[:-1]).double()
+    w = (per * A.block_cols).repeat_interleave(A.block_rows)[:A.num_rows]
+    u = U if dtype == np.float32 else 2.0 ** -53
+    bound = 2 * (w[:, None] + 2) * u * AX
+    assert torch.all((Y1.double() - Yp.double()).abs() <= bound)
+    assert torch.all((Y1.double() - Y64).abs() <= bound)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("L", [1, 3, 16, 32])
+@pytest.mark.parametrize("name", list(BSR_CASES))
+def test_k8_matches_plain_and_float64(cuda, name, L, dtype):
+    A = plan_matrix(BSR_CASES[name](), "bsr", dtype=dtype, device=cuda)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    _check_k8(A, _x(None, 11, cuda, (A.num_cols, L)).to(tdt))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("blocks,L", [((8, 1024), 32), ((4, 8), 300),
+                                      ((3, 5), 7), ((40, 16), 9)])
+def test_k8_other_blocks_and_wide_panels(cuda, blocks, L, dtype):
+    """Blocks other than (8, 128) and wide X: block columns copied in
+    chunks ((8, 1024) at L = 32), a panel wider than the CTA's 256
+    threads (L = 300), odd shapes, and more block rows than one round
+    covers ((40, 16) at L = 9)."""
+    from tpusparse_torch.formats.bcsr import BcsrMatrix
+
+    S = sp.random(203, 3100, density=0.01, format="csr",
+                  random_state=np.random.default_rng(3))
+    A = BcsrMatrix.from_csr(CsrMatrix.from_scipy(S), *blocks).to(cuda,
+                                                                  dtype)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    _check_k8(A, _x(None, 12, cuda, (A.num_cols, L)).to(tdt))

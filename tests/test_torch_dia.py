@@ -179,7 +179,7 @@ def test_carry_rejects_unknown_kind_and_dirty_pad():
     arrays = {"mask_b": np.asarray(Dj.mask_b).copy(), "offsets": Dj.offsets,
               "vals": Dj.vals, "shape": (Dj.num_rows, Dj.num_cols)}
     with pytest.raises(ValueError, match="unknown plan kind"):
-        plan_from_arrays("bsr", arrays, "cpu")
+        plan_from_arrays("bcoo", arrays, "cpu")
     arrays["mask_b"].reshape(-1)[-1] = 1
     with pytest.raises(ValueError, match="zero pad"):
         plan_from_arrays("dia_masked", arrays, "cpu")

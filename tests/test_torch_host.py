@@ -222,9 +222,9 @@ NOT_PORTED = [
     ("reorder", {"reorder": "rcm"}, "rcm+hybrid_dia"),
     ("row_split", {"strategy": "row_split", "L": 4}, "row_split"),
     ("ell-alias", {"strategy": "ell", "L": 4}, "row_split"),
-    ("bsr", {"strategy": "bsr"}, None),
+    ("bsr", {"strategy": "bsr"}, "bsr"),
     ("bcoo", {"strategy": "bcoo"}, None),
-    ("nmajor", {"strategy": "nmajor"}, None),
+    ("nmajor", {"strategy": "nmajor", "L": 4}, "dia_nmajor"),
     ("nonzero_split", {"strategy": "nonzero_split"}, None),
 ]
 
@@ -235,13 +235,22 @@ def test_plan_matrix_names_roadmap_item(name, kw, kind):
     """A plan the port does not build yet raises NotImplementedError
     naming its ROADMAP item; one whose item is done (A8: multi-RHS
     plans, ``row_split`` and its aliases; A9: float64 plans; A10:
-    reordered plans) plans its family."""
+    reordered plans; A15: n-major plans; A8b: BSR plans) plans its
+    family."""
     csr = gen.make_laplacian_grid2d(6).to_csr()
     if kind is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             plan_matrix(csr, device="cpu", **kw)
     else:
         assert plan_kind(plan_matrix(csr, device="cpu", **kw)) == kind
+
+
+def test_nmajor_single_rhs_raises_as_in_jax():
+    """'nmajor' is a multi-RHS plan: at L = 1 it raises ValueError, as the
+    JAX package's does, instead of handing back another family."""
+    csr = gen.make_laplacian_grid2d(6).to_csr()
+    with pytest.raises(ValueError, match="L >= 2"):
+        plan_matrix(csr, "nmajor", device="cpu")
 
 
 def test_explicit_dia_on_variable_band_names_b2():

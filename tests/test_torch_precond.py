@@ -14,7 +14,9 @@ the algorithms: the port runs its AUTO plans' plain versions.
   * SPAI: M within 1e-10 of the JAX package's (batched QR in float64 on
     both sides, by different LAPACK paths);
   * PCG and SPAI-CG: the JAX package's iterations +-1 and its residual
-    history within 1e-3 relative.
+    history within 1e-3 relative; on a reordered plan the same call in
+    both packages (the preconditioner in the caller's order), and a
+    preconditioner of the permuted matrix that declares the plan's order.
 """
 
 import warnings
@@ -312,21 +314,22 @@ def _check_original_order(res, c, B):
 def test_pcg_generic_path_on_reordered_plan(exact):
     """PCG on a reordered plan runs in the permuted space (K6's plain
     version on B in and X out, the inner merge plan's plain version in
-    between) with the IC(0) factor of ``A.permuted(csr)``: held to the
-    JAX package's PCG on the permuted matrix and the same factor (exact
-    IC(0) to its exact, level-scheduled PCG). The fixture is a scrambled
-    lap2d-24 (on fem2d the residual curve amplifies rounding, and two
-    exact solves in different summation orders part by two
-    iterations)."""
+    between) with the IC(0) factor of ``A.permuted(csr)``, which declares
+    the plan's order (``perm=A.perm``): held to the JAX package's PCG on
+    the permuted matrix and the same factor (exact IC(0) to its exact,
+    level-scheduled PCG). The fixture is a scrambled lap2d-24 (on fem2d
+    the residual curve amplifies rounding, and two exact solves in
+    different summation orders part by two iterations)."""
     j, A, perm, jp = _scrambled_lap2d()
     jL = jic0(jp)
     B = _rhs(j.num_rows, 3, np.float64, seed=7)
     if exact:
         prec = make_exact_ic0_preconditioner(_port(jL), device="cpu",
-                                             impl="python")
+                                             impl="python", perm=A.perm)
         jprec = jexact(jL)
     else:
-        prec = make_ic0_preconditioner(_port(jL), num_rhs=3, device="cpu")
+        prec = make_ic0_preconditioner(_port(jL), num_rhs=3, device="cpu",
+                                       perm=A.perm)
         jprec = jmake_ic0(jL, to_plan=lambda s: jplan(s, "reference"))
     res = pcg_solve_multi(A, torch.from_numpy(B), prec)
     jres = jpcg(jplan(jp, "reference"), jnp.asarray(B[perm]), jprec)
@@ -335,14 +338,15 @@ def test_pcg_generic_path_on_reordered_plan(exact):
 
 
 def test_spai_cg_on_reordered_plan():
-    """SPAI-CG on a reordered plan, with M the SPAI of ``A.permuted(csr)``:
-    held to the JAX package's SPAI-CG on the permuted matrix."""
+    """SPAI-CG on a reordered plan, with M the SPAI of ``A.permuted(csr)``
+    declared in the plan's order: held to the JAX package's SPAI-CG on
+    the permuted matrix."""
     j, A, perm, jp = _scrambled_lap2d()
     B = _rhs(j.num_rows, 3, np.float64, seed=8)
     M = spai_inverse(A.permuted(_port(j)), device="cpu")
     res = spai_cg_solve_multi(
         A, plan_matrix(M, "auto", dtype=np.float64, L=3, device="cpu"),
-        torch.from_numpy(B))
+        torch.from_numpy(B), perm=A.perm)
     jM = jspai.spai_inverse(jp)
     jres = jspai_cg(jplan(jp, "reference"), jplan(jM, "reference"),
                     jnp.asarray(B[perm]))
@@ -363,7 +367,7 @@ def test_fem2d_float64_converges_in_the_permuted_space():
                     device="cpu")
     assert A.order == "rcm"
     Lf = ic0_factorize(A.permuted(c), impl="python")
-    prec = make_ic0_preconditioner(Lf, num_rhs=1, device="cpu")
+    prec = make_ic0_preconditioner(Lf, num_rhs=1, device="cpu", perm=A.perm)
     B = torch.from_numpy(_rhs(c.num_rows, 1, np.float64))
     res = pcg_solve_multi(A, B, prec, max_iters=5000)
     X = res.x.numpy()
@@ -372,6 +376,96 @@ def test_fem2d_float64_converges_in_the_permuted_space():
     # CG has not converged after as many iterations (it needs about 2000)
     cg = cg_solve_multi(A, B, max_iters=res.iterations)
     assert not bool(cg.converged.any())
+
+
+@pytest.mark.parametrize("solver", ["pcg", "spai_cg"])
+def test_reordered_plan_takes_the_jax_call(solver):
+    """The JAX-style call on a reordered plan: the preconditioner built
+    from the matrix as given (the caller's order), applied behind K6's
+    plain version. The JAX package permutes around each product instead;
+    both take the same iterations (28 for PCG on this fixture) and
+    history."""
+    j, A, perm, _ = _scrambled_lap2d()
+    B = _rhs(j.num_rows, 3, np.float64, seed=7)
+    jA = jplan(j, "reference", reorder="rcm")
+    if solver == "pcg":
+        jL = jic0(j)
+        jres = jpcg(jA, jnp.asarray(B),
+                    jmake_ic0(jL, to_plan=lambda s: jplan(s, "reference")))
+        res = pcg_solve_multi(A, torch.from_numpy(B), make_ic0_preconditioner(
+            _port(jL), num_rhs=3, device="cpu"))
+        assert abs(int(jres.iterations) - 28) <= 1
+    else:
+        jM = jspai.spai_inverse(j)
+        jres = jspai_cg(jA, jplan(jM, "reference"), jnp.asarray(B))
+        M = spai_inverse(_port(j), device="cpu")
+        res = spai_cg_solve_multi(A, plan_matrix(
+            M, "auto", dtype=np.float64, L=3, device="cpu"),
+            torch.from_numpy(B))
+    _check_parity(res, jres, f"{solver} JAX call on a reordered plan")
+    _check_original_order(res, _port(j), B)
+
+
+def test_declared_order_must_be_the_plans():
+    """A preconditioner that declares an order other than the plan's, or
+    one on a solve that does not run in the permuted space, raises."""
+    j, A, perm, _ = _scrambled_lap2d()
+    c = _port(j)
+    B = torch.from_numpy(_rhs(j.num_rows, 3, np.float64, seed=7))
+    Lf = ic0_factorize(A.permuted(c), impl="python")
+    ok = make_ic0_preconditioner(Lf, num_rhs=3, device="cpu",
+                                 perm=perm.copy())
+    assert bool(pcg_solve_multi(A, B, ok).converged.all())
+    wrong = make_ic0_preconditioner(Lf, num_rhs=3, device="cpu",
+                                    perm=np.arange(j.num_rows))
+    with pytest.raises(ValueError, match="another order"):
+        pcg_solve_multi(A, B, wrong)
+    with pytest.raises(ValueError, match="permuted space"):
+        pcg_solve_multi(A, B, ok, matmat=lambda V: V)
+    A0 = plan_matrix(c, "merge", dtype=np.float64, L=3, device="cpu")
+    with pytest.raises(ValueError, match="permuted space"):
+        pcg_solve_multi(A0, B, ok)
+    M = plan_matrix(spai_inverse(c, device="cpu"), "auto", dtype=np.float64,
+                    L=3, device="cpu")
+    with pytest.raises(ValueError, match="another order"):
+        spai_cg_solve_multi(A, M, B, perm=np.arange(j.num_rows))
+
+
+def test_plain_callable_declares_its_order_by_keyword():
+    """``pcg_solve_multi(..., perm=A.perm)`` declares the plan's order for
+    any callable: a lambda around the IC(0) preconditioner of
+    ``A.permuted(csr)`` gives the very solve that its ``perm`` field
+    gives, and a wrong keyword raises."""
+    j, A, perm, _ = _scrambled_lap2d()
+    B = torch.from_numpy(_rhs(j.num_rows, 3, np.float64, seed=7))
+    Lf = ic0_factorize(A.permuted(_port(j)), impl="python")
+    prec = make_ic0_preconditioner(Lf, num_rhs=3, device="cpu", perm=A.perm)
+    res = pcg_solve_multi(A, B, prec)
+    res_kw = pcg_solve_multi(A, B, lambda R: prec(R), perm=A.perm)
+    assert res_kw.iterations == res.iterations
+    assert torch.equal(res_kw.x, res.x)
+    with pytest.raises(ValueError, match="another order"):
+        pcg_solve_multi(A, B, lambda R: prec(R),
+                        perm=np.arange(j.num_rows))
+
+
+def test_pcg_with_matmat_takes_the_jax_route():
+    """``matmat`` on a reordered plan: no permuted-space solve, the
+    preconditioner in the caller's order, as in the JAX package."""
+    from tpusparse.ops.spmv import spmm as jspmm
+    from tpusparse_torch import spmm
+
+    j, A, _, _ = _scrambled_lap2d()
+    jL = jic0(j)
+    B = _rhs(j.num_rows, 3, np.float64, seed=7)
+    jA = jplan(j, "reference")
+    jres = jpcg(jA, jnp.asarray(B),
+                jmake_ic0(jL, to_plan=lambda s: jplan(s, "reference")),
+                matmat=lambda V: jspmm(jA, V))
+    C = plan_matrix(_port(j), "merge", dtype=np.float64, L=3, device="cpu")
+    res = pcg_solve_multi(A, torch.from_numpy(B), make_ic0_preconditioner(
+        _port(jL), num_rhs=3, device="cpu"), matmat=lambda V: spmm(C, V))
+    _check_parity(res, jres, "pcg with matmat")
 
 
 def test_pcg_and_permute_models():

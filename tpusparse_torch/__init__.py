@@ -7,7 +7,8 @@ numpy host layer.
 
 Layering mirrors ``tpusparse``:
 
-    formats/   COO, host CSR (+ ``to(device)``), DIA partition (numpy)
+    formats/   COO, host CSR (+ ``to(device)``), BCSR, DIA partition
+               (numpy)
     io/        .mtx reader, synthetic generators (numpy)
     ops/       plan_matrix / spmv / spmm dispatch, hybrid DIA + merge,
                reordering (RCM, degree; ``ReorderedPlan``), BLAS-1
@@ -34,11 +35,17 @@ band also ``plan_dia_bf16`` -> ``cg_solve_bf16`` /
 ``ReorderedPlan`` (permutations on the card by K6); and
 ``ic0_factorize`` / ``spai_inverse`` -> ``pcg_solve_multi`` with
 ``make_ic0_preconditioner`` / ``make_exact_ic0_preconditioner``, and
-``spai_cg_solve_multi``.
+``spai_cg_solve_multi`` (a preconditioner in the caller's order, or in a
+reordered plan's order when it declares ``perm=A.perm``). Two explicit
+strategies serve (n, L) blocks: ``plan_matrix(csr, 'nmajor', L=L)`` (K7,
+no transposes; ``cg_solve_multi`` / ``pcg_solve_multi`` keep (n, L)
+state on it) and ``plan_matrix(csr, 'bsr')`` (``BcsrMatrix`` blocks on
+K8, K8d in float64).
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
+from tpusparse_torch.formats.bcsr import BcsrMatrix
 from tpusparse_torch.formats.coo import CooMatrix
 from tpusparse_torch.formats.csr import CsrMatrix
 from tpusparse_torch.io.market import read_market
@@ -73,6 +80,7 @@ from tpusparse_torch.solvers.refine import (
 from tpusparse_torch.solvers.spai_cg import spai_cg_solve_multi
 
 __all__ = [
+    "BcsrMatrix",
     "CgResult",
     "CooMatrix",
     "CsrMatrix",

@@ -10,6 +10,10 @@
                      X and Y once per lane)
   * CG GFLOP/s     = (2 nnz + 10 n) * L * iters / t
   * permutation    = rows * (4 + 2 L sV) (index, X read and Y written)
+  * BSR SpMM       = nb * br * bc * sV + nb * 4 + (nbr + 1) * 4
+                     + (cols + rows) * L * sV (blocks, block columns and
+                     block-row offsets once, X read and Y written once);
+                     2 * nb * br * bc * L flops (every stored entry)
   * PCG flops      = CG's + 2 nnz(M) L per iteration for an SpMM
                      preconditioner (SPAI), + sweeps * 2 * 2 nnz(L) L
                      for Jacobi IC(0) (two triangles, a product per
@@ -58,6 +62,24 @@ def spmm_bytes(nnz: int, rows: int, cols: int, L: int = 1,
     (rows, L) written once."""
     return (nnz * (value_bytes + index_bytes) + (rows + 1) * index_bytes
             + (cols + rows) * L * value_bytes)
+
+
+def bsr_bytes(num_blocks: int, block_rows: int, block_cols: int,
+              rows: int, cols: int, L: int = 1,
+              value_bytes: int = 4) -> float:
+    """Least bytes a BCSR SpMM moves: every stored block entry, its
+    block-column index and the block-row offsets once, X (cols, L) read
+    once and Y (rows, L) written once."""
+    nbr = -(-rows // block_rows)
+    return (num_blocks * (block_rows * block_cols * value_bytes + 4)
+            + (nbr + 1) * 4 + (cols + rows) * L * value_bytes)
+
+
+def bsr_flops(num_blocks: int, block_rows: int, block_cols: int,
+              L: int = 1) -> float:
+    """Operations of a BCSR SpMM: a multiply and an add per stored block
+    entry and lane, zeros of the blocks included."""
+    return 2.0 * num_blocks * block_rows * block_cols * L
 
 
 def cg_flops(nnz: int, n: int, L: int, iters: int) -> float:

@@ -10,7 +10,9 @@ JAX package, so both packages can be handed one matrix.
     nonzeros (the row-skew stress test for merge-path SpMV);
   * ``make_rmat`` / ``make_rmat_spd`` — R-MAT power-law graphs;
   * ``make_variable_stencil`` — variable-coefficient SPD diffusion;
-  * ``make_fem2d`` — P1 finite elements on a random Delaunay mesh.
+  * ``make_fem2d`` — P1 finite elements on a random Delaunay mesh;
+  * ``make_block_random`` — block-sparse random tiles (the BCSR
+    fixture).
 """
 
 from __future__ import annotations
@@ -199,3 +201,36 @@ def make_fem2d(n_points: int, seed: int = 0, lump: float = 1e-3,
                       shape=(n_points, n_points)).tocsr().tocoo()
     return CooMatrix(n_points, n_points, A.row.astype(np.int32),
                      A.col.astype(np.int32), A.data.astype(dtype))
+
+
+def make_block_random(block_grid: int, blocks_per_row: int = 4,
+                      block_rows: int = 8, block_cols: int = 128,
+                      fill: float = 1.0, seed: int = 0,
+                      dtype=np.float64) -> CooMatrix:
+    """Block-sparse random matrix of (block_grid * block_rows) x
+    (block_grid * block_cols): ``blocks_per_row`` tiles per block row
+    (one always on the block diagonal, the rest at random block columns),
+    each filled to ``fill`` density — the multi-DOF FEM pattern the
+    reference's BcsrMatrix targets."""
+    rng = np.random.default_rng(seed)
+    rows_l, cols_l = [], []
+    per_tile = block_rows * block_cols
+    k = max(int(per_tile * fill), 1)
+    for br in range(block_grid):
+        bcs = set([br % block_grid])
+        while len(bcs) < min(blocks_per_row, block_grid):
+            bcs.add(int(rng.integers(0, block_grid)))
+        for bc in bcs:
+            if fill >= 1.0:
+                lr = np.repeat(np.arange(block_rows), block_cols)
+                lc = np.tile(np.arange(block_cols), block_rows)
+            else:
+                flat = rng.choice(per_tile, size=k, replace=False)
+                lr, lc = flat // block_cols, flat % block_cols
+            rows_l.append(br * block_rows + lr)
+            cols_l.append(bc * block_cols + lc)
+    rows = np.concatenate(rows_l).astype(np.int32)
+    cols = np.concatenate(cols_l).astype(np.int32)
+    vals = rng.standard_normal(rows.size).astype(dtype)
+    return CooMatrix(block_grid * block_rows, block_grid * block_cols,
+                     rows, cols, vals).sum_duplicates()

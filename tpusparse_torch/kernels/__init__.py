@@ -16,4 +16,13 @@ kernel or raises.
                tpusparse/kernels/spmm_merge.py::_spmm_tiles)
   ell_spmm     K4, row-split CSR SpMM (replaces
                tpusparse/kernels/ell_spmm.py::_spmm_ell)
+  permute      K6, exact row permutation (replaces
+               tpusparse/kernels/permute.py::_permute_call)
+  dia_nmajor   K7, masked DIA SpMM on row-major (n, L) blocks (replaces
+               tpusparse/kernels/dia_nmajor.py::_spmm_nmajor)
+  bsr          K8, BCSR panel SpMM (replaces
+               tpusparse/kernels/bsr.py::_bsr_spmm_panels_static)
+
+Every kernel but K6 and K7 has a float64 twin from the same template
+(K1d-K5d, K8d), counted apart (``LAUNCHES_F64``, ``PLANES_LAUNCHES_F64``).
 """

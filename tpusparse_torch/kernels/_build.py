@@ -34,9 +34,10 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 # C entry points: name -> argtypes. Every kernel entry returns the
 # cudaGetLastError() code after its launches (0 = success). Each float32
-# kernel has a float64 twin, ``<name>_f64``, built from the same template
-# and taking double operands (and, for the masked DIA kernel, double
-# host coefficients).
+# kernel but the n-major one (float32 only, as in the JAX package) has a
+# float64 twin, ``<name>_f64``, built from the same template and taking
+# double operands (and, for the masked DIA kernel, double host
+# coefficients).
 SIGNATURES = {
     # mask, xt, yt, n, L, K, offsets (host int*), vals (host float* or
     # double*), stream
@@ -63,6 +64,14 @@ SIGNATURES = {
     # row_offsets, col_indices, values, X, Y, num_rows, L, stream
     "tps_rowsplit_spmm": (_P, _P, _P, _P, _P, _I32, _I32, _P),
     "tps_rowsplit_spmm_f64": (_P, _P, _P, _P, _P, _I32, _I32, _P),
+    # mask, x, y, n, L, K, offsets (host int*), vals (host float*),
+    # stream: K7, float32 only
+    "tps_dia_nmajor": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
+    # block_row_offsets, block_col_indices, blocks, X, Y, num_rows,
+    # num_cols, num_block_rows, block_rows, block_cols, L, stream
+    "tps_bsr": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P),
+    "tps_bsr_f64": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
+                    _P),
     # perm, x, y, n, words per row, bytes per word, stream
     "tps_permute": (_P, _P, _P, _I64, _I32, _I32, _P),
     # host entries (ic0_host.cpp; no stream, nothing on the card):

@@ -1,0 +1,182 @@
+"""N-major masked DIA SpMM — kernel K7.
+
+Port of ``tpusparse/kernels/dia_nmajor.py``. A square
+constant-coefficient band of at most 32 diagonals (the masked operand of
+K1, ``dia_stream.DiaStreamDevice``) multiplies a block of right-hand
+sides kept in its natural row-major (n, L) layout: Y (n, L) = A X (n, L),
+with no transposes around the kernel.
+
+K7 (``csrc/dia_nmajor.cu``) replaces the Pallas kernel ``_spmm_nmajor``
+(body ``_nmajor_kernel``). It reads K1's per-row mask words and its K
+by-value coefficients and keeps K1's contract (out-of-range rows read 0,
+in-range loads are multiplied even by a zero coefficient, products and
+sums round separately in offset order), so it equals its plain version
+and K1 on X.T, transposed back, bit for bit. The TPU layout goes: the
+packed per-sublane mask words, the guard blocks, the flat (T, 128) view
+and its lane padding, ``plan_geometry``, ``S_TARGET``, ``_vmem_need``,
+``fold_lanes`` and ``tile_lanes``. The plan keeps the JAX package's
+padded lane count (``L``, the next of 4, 8, ..., 128 at or above the
+requested L) as the most columns it serves; K7 runs on the caller's
+columns, unpadded.
+
+The kernel is float32 only, as the JAX one is. The plain version serves
+CPU tensors only: a CUDA tensor launches K7 or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from tpusparse_torch.kernels import _build
+from tpusparse_torch.kernels.dia_stream import (
+    DiaStreamDevice,
+    _maskable,
+    to_device_dia_stream,
+)
+
+# The JAX package's padded lane counts (divisors of 128, floored at 4).
+LANE_COUNTS = (4, 8, 16, 32, 64, 128)
+
+# K7 launches since the count was last reset (plain runs not counted).
+LAUNCHES = 0
+
+
+def padded_lane_count(L: int) -> int:
+    """The smallest of ``LANE_COUNTS`` at or above L (the JAX package's
+    ``_next_lane_count``); raises ValueError past 128."""
+    for p in LANE_COUNTS:
+        if p >= L:
+            return p
+    raise ValueError(f"n-major plans support L <= 128, got {L}")
+
+
+@dataclasses.dataclass
+class DiaNMajorDevice:
+    """N-major masked DIA operand: the masked band (K1's operand: mask
+    words, offsets, float32 coefficients) and ``L``, the most right-hand
+    sides the plan serves (the JAX package's padded lane count)."""
+
+    band: DiaStreamDevice
+    L: int
+
+    @property
+    def num_rows(self) -> int:
+        return self.band.num_rows
+
+    @property
+    def num_cols(self) -> int:
+        return self.band.num_cols
+
+    @property
+    def offsets(self) -> tuple:
+        return self.band.offsets
+
+
+def to_device_dia_nmajor(dia_host, L: int, device) -> DiaNMajorDevice:
+    """Ship a constant-coefficient host DIA plan for up to L right-hand
+    sides (2 <= L <= 128, recorded padded as the JAX package pads it).
+    Raises ValueError for another L, a non-square or a non-maskable
+    band."""
+    if L < 2 or L > LANE_COUNTS[-1]:
+        raise ValueError(f"n-major plans need 2 <= L <= 128, got L={L}")
+    if dia_host.num_rows != dia_host.num_cols:
+        raise ValueError("n-major DIA plans require a square matrix")
+    if not _maskable(dia_host)[1]:
+        raise ValueError(
+            "n-major plan requires every diagonal to be a constant "
+            "coefficient (formats.dia.plane_constants)")
+    return DiaNMajorDevice(to_device_dia_stream(dia_host, device),
+                           padded_lane_count(L))
+
+
+def spmm_nmajor_plain(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7: (n, L) -> (n, L), the same products
+    and sums in the same order as K7 (and as K1's plain version on
+    X.T)."""
+    B = D.band
+    n, L = X.shape
+    E = max((abs(o) for o in B.offsets), default=0)
+    xp = torch.zeros((n + 2 * E, L), dtype=X.dtype, device=X.device)
+    xp[E:E + n] = X
+    acc = torch.zeros((n, L), dtype=X.dtype, device=X.device)
+    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    for k, off in enumerate(B.offsets):
+        coef = torch.where(((B.mask >> k) & 1) != 0, B.vals[k], zero)
+        acc = acc + coef[:, None] * xp[E + off:E + off + n]
+    return acc
+
+
+def _check(D: DiaNMajorDevice, X: torch.Tensor) -> None:
+    B = D.band
+    if X.dim() != 2 or X.shape[0] != D.num_cols:
+        raise ValueError(
+            f"X must be ({D.num_cols}, L), got {tuple(X.shape)}")
+    if X.shape[1] > D.L:
+        raise ValueError(
+            f"n-major plan built for L <= {D.L} RHS columns, got "
+            f"{X.shape[1]}; rebuild with plan_matrix(..., "
+            f"strategy='nmajor', L={X.shape[1]})")
+    if X.dtype != torch.float32 or B.vals.dtype != torch.float32:
+        raise TypeError(f"K7 is float32 only (operand {B.vals.dtype}, X "
+                        f"{X.dtype})")
+    if B.mask.dtype != torch.int32 or B.mask.shape != (D.num_rows,):
+        raise TypeError("mask must be (num_rows,) int32")
+    if not (X.is_contiguous() and B.mask.is_contiguous()):
+        raise ValueError("K7 needs contiguous X and mask")
+    if X.device != B.mask.device or B.vals.device != B.mask.device:
+        raise ValueError(
+            f"X on {X.device}, operand on {B.mask.device}: same device "
+            "needed")
+
+
+def _launch(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
+    global LAUNCHES
+    B = D.band
+    n, L = X.shape
+    K = len(B.offsets)
+    Y = torch.empty((n, L), dtype=X.dtype, device=X.device)
+    offs = (ctypes.c_int * max(K, 1))(*B.offsets)
+    vals = (ctypes.c_float * max(K, 1))(*B.vals_host)
+    lib = _build.library()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = lib.tps_dia_nmajor(B.mask.data_ptr(), X.data_ptr(),
+                                Y.data_ptr(), n, L, K,
+                                ctypes.addressof(offs),
+                                ctypes.addressof(vals), stream)
+    _build.check(rc, "tps_dia_nmajor")
+    LAUNCHES += 1
+    return Y
+
+
+def nmajor_matmat(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
+    """A @ X for X (num_cols, L) float32, L at most the plan's ``L``,
+    row-major: K7 on a CUDA tensor, the plain version on a CPU tensor;
+    any other device raises."""
+    _check(D, X)
+    if X.device.type == "cuda":
+        return _launch(D, X)
+    if X.device.type == "cpu":
+        return spmm_nmajor_plain(D, X)
+    raise ValueError(f"no K7 path for device {X.device}")
+
+
+def spmm_dia_nmajor(D: DiaNMajorDevice, X, alpha=1.0, beta=0.0, Y=None):
+    """Y = alpha * A @ X + beta * Y for X (num_cols, L <= D.L), cast to
+    float32."""
+    Y_new = nmajor_matmat(D, X.to(torch.float32).contiguous())
+    if beta == 0.0 or Y is None:
+        return alpha * Y_new if alpha != 1.0 else Y_new
+    return alpha * Y_new + beta * Y
+
+
+def spmv_dia_nmajor(D: DiaNMajorDevice, x, alpha=1.0, beta=0.0, y=None):
+    """y = alpha * A @ x + beta * y: K7 at L = 1."""
+    y_new = nmajor_matmat(
+        D, x.to(torch.float32).reshape(-1, 1).contiguous())[:, 0]
+    if beta == 0.0 or y is None:
+        return alpha * y_new if alpha != 1.0 else y_new
+    return alpha * y_new + beta * y

@@ -19,7 +19,8 @@ class HybridPlan:
     """DIA part + a plan for the remainder (None when the diagonals
     cover the whole matrix — then this is pure DIA)."""
 
-    dia: Any             # DiaStreamDevice (K1) or formats.dia.DiaDevice (K5)
+    dia: Any             # DiaStreamDevice (K1), formats.dia.DiaDevice (K5)
+                         # or kernels.dia_nmajor.DiaNMajorDevice (K7)
     rest: Any            # MergeDevice or None
     nnz: int             # real nonzeros (for flop accounting)
 

@@ -21,6 +21,14 @@ float64 twins of K1-K5):
                (K3d) for SpMM.
   ROW_SPLIT  — (aliases 'ell', 'simple') the row-split kernel K4 (K4d),
                for SpMV and SpMM; never an AUTO choice.
+  NMAJOR     — float32, L >= 2: the masked band on the n-major kernel K7,
+               X and Y in (n, L) with no transposes; a scattered
+               remainder goes to the merge plan. Never an AUTO choice (as
+               in the JAX package).
+  BSR        — (8, 128) blocks on the BCSR panel kernel K8 (K8d in
+               float64); never an AUTO choice yet: the JAX package's fill
+               gate (``fill_estimate >= 0.3``) waits for a card A/B
+               against K3.
   REFERENCE  — the plain-torch golden product on ``csr.to(device,
                dtype)``.
 
@@ -43,7 +51,8 @@ the XLA DIA op and the stream kernels (``DIA_STREAM_MIN_BYTES``,
 on |offset|): they follow XLA's fusion capacity and the TPU's VMEM
 blocks, and one Hopper kernel (K5) covers both regimes. The other
 strategies raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+brings them. A float64 ``bsr`` plan runs K8d where the JAX package plans
+``reference``: the plan differs, the numbers do not.
 
 ``reorder='rcm' | 'degree' | 'auto'`` plans the symmetrically permuted
 matrix and wraps it in a ``ReorderedPlan`` (``ops/reorder.py``); its
@@ -58,6 +67,7 @@ import warnings
 import numpy as np
 import torch
 
+from tpusparse_torch.formats.bcsr import BcsrMatrix
 from tpusparse_torch.formats.csr import CsrMatrix, value_dtype
 from tpusparse_torch.formats.dia import (
     DiaDevice,
@@ -65,6 +75,13 @@ from tpusparse_torch.formats.dia import (
     partition_dia,
     select_diagonals,
     to_device_dia,
+)
+from tpusparse_torch.kernels.bsr import bsr_spmm, bsr_spmv
+from tpusparse_torch.kernels.dia_nmajor import (
+    DiaNMajorDevice,
+    spmm_dia_nmajor,
+    spmv_dia_nmajor,
+    to_device_dia_nmajor,
 )
 from tpusparse_torch.kernels.dia_stream import (
     DiaStreamDevice,
@@ -115,15 +132,15 @@ class SpmvStrategy(enum.Enum):
 # Where each strategy the port does not run yet is planned (ROADMAP.md).
 _NOT_PORTED = {
     SpmvStrategy.NONZERO_SPLIT: "the nonzero_split strategy row (ROADMAP A14)",
-    SpmvStrategy.BSR: "BCSR panel SpMM, kernel B6 (ROADMAP A8b)",
     SpmvStrategy.BCOO: "the vendor-baseline row (ROADMAP A6)",
-    SpmvStrategy.NMAJOR: "n-major masked multi-RHS DIA, kernel B12 "
-                         "(ROADMAP A15)",
 }
 
 # AUTO peels diagonals only when the selected ones carry at least this
 # fraction of the nonzeros (the JAX package's gate).
 DIA_MIN_COVERAGE = 0.3
+
+# The blocks of a 'bsr' plan (the JAX package's).
+BSR_BLOCK = (8, 128)
 
 
 def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
@@ -131,8 +148,9 @@ def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
     """Build the device operand of a host CsrMatrix on ``device``, its
     values in ``dtype`` (numpy or torch float32 or float64; float64
     keeps the host values unrounded). ``L`` (>= 1) is the number of
-    right-hand sides the plan will serve; every plan of the port serves
-    any L, so it does not change the choice. ``reorder`` ('rcm',
+    right-hand sides the plan will serve; it does not change the choice,
+    and every plan serves any L but the n-major one, which serves up to
+    the JAX package's padded lane count for L. ``reorder`` ('rcm',
     'degree' or 'auto') plans a symmetric permutation of the matrix
     (``ops/reorder.plan_reorder``)."""
     if reorder:
@@ -151,6 +169,10 @@ def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
         return csr.to(device, dtype)
     if strategy == SpmvStrategy.ROW_SPLIT:
         return to_device_row_split(csr, device, dtype)
+    if strategy == SpmvStrategy.NMAJOR:
+        return _plan_nmajor(csr, int(L), device, dtype)
+    if strategy == SpmvStrategy.BSR:
+        return BcsrMatrix.from_csr(csr, *BSR_BLOCK).to(device, dtype)
     if strategy in (SpmvStrategy.AUTO, SpmvStrategy.DIA):
         plan = _try_plan_dia(csr, strategy, device, dtype)
         if plan is not None:
@@ -180,6 +202,38 @@ def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device, dtype):
         dev = to_device_dia(dia_host, device, plane_dtype=dtype)
     rest_plan = (to_device_merge(rest, device, dtype) if rest.nnz > 0
                  else None)
+    return HybridPlan(dev, rest_plan, csr.nnz)
+
+
+def _plan_nmajor(csr: CsrMatrix, L: int, device, dtype) -> HybridPlan:
+    """The explicit n-major plan: the masked band on K7 for up to L
+    right-hand sides, a scattered remainder on the merge plan. Raises
+    ValueError where the JAX package does: L < 2, no nonzeros, no
+    selected diagonals, float64, a band that is not square and
+    constant-coefficient, L > 128. Its VMEM halo gate
+    (``plan_geometry``) has no counterpart: K7 takes any offsets, and a
+    diagonal-only band too."""
+    if L < 2:
+        raise ValueError(
+            "strategy='nmajor' is a multi-RHS plan (needs L >= 2); use "
+            "strategy='dia' for single-RHS masked streams")
+    if csr.nnz == 0:
+        raise ValueError("strategy='nmajor': matrix has no nonzeros")
+    offsets = select_diagonals(csr)
+    if offsets.size == 0:
+        raise ValueError(
+            "strategy='nmajor': no dense diagonals selected "
+            "(formats.dia.select_diagonals) — the n-major kernel needs a "
+            "constant-coefficient diagonal operator")
+    dia_host, rest = partition_dia(csr, offsets)
+    if dtype == torch.float64:
+        raise ValueError("strategy='nmajor' is fp32-only")
+    if csr.num_rows != csr.num_cols or not _maskable(dia_host)[1]:
+        raise ValueError(
+            "strategy='nmajor' requires a square constant-coefficient "
+            "(maskable) diagonal operator")
+    dev = to_device_dia_nmajor(dia_host, L, device)
+    rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
     return HybridPlan(dev, rest_plan, csr.nnz)
 
 
@@ -224,10 +278,14 @@ def plan_dtype(A) -> torch.dtype:
         A = A.inner
     if isinstance(A, HybridPlan):
         A = A.dia
+    if isinstance(A, DiaNMajorDevice):
+        A = A.band
     if isinstance(A, DiaStreamDevice):
         return A.vals.dtype
     if isinstance(A, DiaDevice):
         return A.data.dtype
+    if isinstance(A, BcsrMatrix):
+        return A.blocks.dtype
     return A.values.dtype
 
 
@@ -241,10 +299,14 @@ def plan_kind(A) -> str:
     if isinstance(A, ReorderedPlan):
         return f"{A.order}+{plan_kind(A.inner)}"
     if isinstance(A, HybridPlan):
-        tag = "dia_bf16" if _bf16_planes(A.dia) else "dia"
+        tag = plan_kind(A.dia)
         return tag if A.rest is None else "hybrid_" + tag
+    if isinstance(A, DiaNMajorDevice):
+        return "dia_nmajor"
     if isinstance(A, (DiaStreamDevice, DiaDevice)):
         return "dia_bf16" if _bf16_planes(A) else "dia"
+    if isinstance(A, BcsrMatrix):
+        return "bsr"
     if isinstance(A, MergeDevice):
         return "merge"
     if isinstance(A, RowSplitDevice):
@@ -279,6 +341,8 @@ def spmv(A, x, alpha=1.0, beta=0.0, y=None):
         return y_new if beta == 0.0 or y is None else y_new + beta * y
     if isinstance(A, HybridPlan):
         return spmv_hybrid(A, x, alpha=alpha, beta=beta, y=y)
+    if isinstance(A, DiaNMajorDevice):
+        return spmv_dia_nmajor(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, DiaStreamDevice):
         return spmv_dia_stream(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, DiaDevice):
@@ -287,6 +351,8 @@ def spmv(A, x, alpha=1.0, beta=0.0, y=None):
         return spmv_merge(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, RowSplitDevice):
         return spmv_ell(A, x, alpha=alpha, beta=beta, y=y)
+    if isinstance(A, BcsrMatrix):
+        return bsr_spmv(A, x, alpha=alpha, beta=beta, y=y)
     if isinstance(A, CsrMatrix):
         return spmv_reference(A, x, alpha=alpha, beta=beta, y=y)
     raise TypeError(f"not a plan: {type(A).__name__}")
@@ -305,6 +371,8 @@ def spmm(A, X, alpha=1.0, beta=0.0, Y=None):
         return Y_new if beta == 0.0 or Y is None else Y_new + beta * Y
     if isinstance(A, HybridPlan):
         return spmm_hybrid(A, X, alpha=alpha, beta=beta, Y=Y)
+    if isinstance(A, DiaNMajorDevice):
+        return spmm_dia_nmajor(A, X, alpha=alpha, beta=beta, Y=Y)
     if isinstance(A, DiaStreamDevice):
         return spmm_dia_stream(A, X, alpha=alpha, beta=beta, Y=Y)
     if isinstance(A, DiaDevice):
@@ -313,6 +381,8 @@ def spmm(A, X, alpha=1.0, beta=0.0, Y=None):
         return spmm_merge(A, X, alpha=alpha, beta=beta, Y=Y)
     if isinstance(A, RowSplitDevice):
         return spmm_ell(A, X, alpha=alpha, beta=beta, Y=Y)
+    if isinstance(A, BcsrMatrix):
+        return bsr_spmm(A, X, alpha=alpha, beta=beta, Y=Y)
     if isinstance(A, CsrMatrix):
         return spmm_reference(A, X, alpha=alpha, beta=beta, Y=Y)
     raise TypeError(f"not a plan: {type(A).__name__}")

@@ -1,8 +1,8 @@
 """Conjugate gradient, single and blocked multi-RHS (port of
 ``tpusparse/solvers/cg.py``).
 
-``cg_solve``: textbook CG from x0 = 0 with the JAX package's semantics
-(``_cg_solve_impl``):
+``cg_solve``: textbook CG from x0 (0 by default; r = b - A x0 otherwise)
+with the JAX package's semantics (``_cg_solve_impl``):
 
   * the convergence test ``sqrt(r.r) >= ||b|| * tolerance`` comes
     before each iteration's body, so a zero or already-small b takes
@@ -12,6 +12,9 @@
     exactly 0, so the state never turns NaN;
   * the history holds ``sqrt(r.r) / ||b||`` per iteration, NaN past the
     last one.
+
+A custom ``matvec`` (``cg_solve``) or ``matmat`` (``cg_solve_multi``)
+replaces the plan's product, as in the JAX package.
 
 ``cg_solve_multi``: blocked CG on B (n, L) from X0 = 0, each lane its
 own CG, with ``_cg_solve_multi_impl``'s semantics:
@@ -27,14 +30,20 @@ own CG, with ``_cg_solve_multi_impl``'s semantics:
 A plan that is all diagonal runs (no remainder), masked (K1, K1d) or
 value planes of any type (K5, K5d), keeps the whole state in (L, n),
 the kernels' own layout, with no transposes per iteration (the JAX
-package's ``_pure_dia_of`` / ``_dia_t_callable``); every other plan
-keeps (n, L) and calls ``spmm``.
+package's ``_pure_dia_of`` / ``_dia_t_callable``). A pure n-major plan
+(``strategy='nmajor'``) with float32 B of at most its ``L`` columns keeps
+the state in (n, L), K7's own layout, and calls K7 directly (the
+function of the JAX package's ``_cg_solve_multi_interleaved``; only the
+dots' reduction order differs, and there are no pad lanes). Every other
+plan keeps (n, L) and calls ``spmm``.
 
 On a ``ReorderedPlan`` both solvers run in the permuted space, as the
 JAX package's do: b (B) is permuted once on the way in and x (X) once on
 the way out, both by K6, and the solve runs on the inner plan, so a pure
 DIA inner plan keeps its (L, n) state. Residuals and iterations do not
-depend on the order of the unknowns.
+depend on the order of the unknowns. With ``x0`` or a custom operator
+the solve takes the JAX package's dispatch route instead: ``spmv`` on
+the reordered plan permutes around each product.
 
 The state is in ``b``'s dtype: a float64 ``b`` on a float64 plan (the
 kernels K1d-K5d) keeps x, r, p, the dots, ``alpha``, ``beta`` and the
@@ -50,10 +59,12 @@ iterations are later work (ROADMAP A7b).
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
 from tpusparse_torch.formats.dia import DiaDevice
+from tpusparse_torch.kernels.dia_nmajor import DiaNMajorDevice, nmajor_matmat
 from tpusparse_torch.kernels.dia_stream import (
     DiaStreamDevice,
     spmm_dia_planes_t,
@@ -85,16 +96,19 @@ class CgResult:
 
 
 def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
-             tolerance: float = 1e-5,
-             record_history: bool = False) -> CgResult:
+             tolerance: float = 1e-5, record_history: bool = False, *,
+             x0: torch.Tensor | None = None,
+             matvec: Callable | None = None) -> CgResult:
     """Solve A x = b for a plan ``A`` of ``plan_matrix``; ``b`` lies on
-    the plan's device, in the working dtype."""
-    if isinstance(A, ReorderedPlan):
+    the plan's device, in the working dtype. ``x0`` is a warm start (r =
+    b - A x0); ``matvec(v) -> A v`` replaces the plan's product."""
+    if isinstance(A, ReorderedPlan) and x0 is None and matvec is None:
         res = cg_solve(A.inner, A.apply_perm(b), max_iters, tolerance,
                        record_history)
         return dataclasses.replace(res, x=A.apply_inv(res.x))
-    x = torch.zeros_like(b)
-    r = b
+    mv = matvec if matvec is not None else (lambda v: spmv(A, v))
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b if x0 is None else b - mv(x)
     p = r
     rs = dot_single(r, r)
     b_norm = torch.sqrt(dot_single(b, b))
@@ -105,7 +119,7 @@ def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
                       dtype=b.dtype, device=b.device)
     i = 0
     while i < max_iters and bool(torch.sqrt(rs) >= threshold):
-        Ap = spmv(A, p)
+        Ap = mv(p)
         pAp = dot_single(p, Ap)
         alpha = torch.where(pAp == 0, zero, rs / pAp)
         x = axpy_single(x, alpha, p)
@@ -123,17 +137,25 @@ def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
 
 
 def cg_solve_multi(A, B: torch.Tensor, max_iters: int = 10000,
-                   tolerance: float = 1e-5,
-                   record_history: bool = True) -> CgResult:
+                   tolerance: float = 1e-5, record_history: bool = True, *,
+                   matmat: Callable | None = None) -> CgResult:
     """Solve A X = B for B (n, L) lane by lane, for a plan ``A`` of
     ``plan_matrix``; ``B`` lies on the plan's device, in the working
-    dtype."""
+    dtype. ``matmat(V) -> A V`` on (n, L) blocks replaces the plan's
+    product."""
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
-    if isinstance(A, ReorderedPlan):
+    if matmat is None and isinstance(A, ReorderedPlan):
         res = cg_solve_multi(A.inner, A.apply_perm(B), max_iters, tolerance,
                              record_history)
         return dataclasses.replace(res, x=A.apply_inv(res.x))
+    if matmat is None:
+        matmat = _nmajor_callable(A, B)
+    if matmat is not None:
+        X, i, converged, rel, hist = _cg_multi_loop(
+            matmat, B, 1, max_iters, tolerance, record_history)
+        return CgResult(x=X, iterations=i, converged=converged,
+                        residual=rel, history=hist)
     mm_t = _dia_t_callable(A)
     if mm_t is not None:
         XT, i, converged, rel, hist = _cg_multi_loop(
@@ -158,6 +180,18 @@ def _dia_t_callable(A):
         return lambda P: spmm_dia_stream_t(A, P)
     if isinstance(A, DiaDevice):
         return lambda P: spmm_dia_planes_t(A, P)
+    return None
+
+
+def _nmajor_callable(A, B: torch.Tensor):
+    """K7 on (n, L) blocks for a plan that is all n-major diagonal runs,
+    when B is float32 with at most the plan's ``L`` columns (the JAX
+    package's ``_interleaved_plan_of`` gate); None otherwise."""
+    if isinstance(A, HybridPlan) and A.rest is None:
+        A = A.dia
+    if (isinstance(A, DiaNMajorDevice) and B.dtype == torch.float32
+            and B.shape[1] <= A.L):
+        return lambda P: nmajor_matmat(A, P)
     return None
 
 

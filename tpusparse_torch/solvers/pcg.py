@@ -16,17 +16,27 @@ The loop is the one of ``cg_solve_multi`` (``solvers/cg._cg_multi_loop``)
 with a preconditioner: eager, one host sync per iteration. A pure DIA
 plan keeps its state in (L, n), the kernels' layout, and the
 preconditioner keeps its (n, L) contract behind two transposes per
-iteration (the JAX package's ``_pcg_solve_multi_transposed``). The JAX
-package's n-major interleaved path waits for kernel B12 (ROADMAP A15).
+iteration (the JAX package's ``_pcg_solve_multi_transposed``). A pure
+n-major plan with float32 B of at most its ``L`` columns keeps (n, L)
+state on K7, and the preconditioner takes it with no transposes (the
+function of the JAX package's ``_pcg_solve_multi_interleaved``).
 
-On a ``ReorderedPlan`` the solve runs in the permuted space, as
-``cg_solve_multi`` does: B is permuted once on the way in and X once on
-the way out (K6), and the solve runs on the inner plan. The
-preconditioner then acts in the plan's order: build it from
-``A.permuted(csr)``, the reordered matrix, whose IC(0) factor is the
-better one (the JAX package's ``multicg`` bench takes the same steps by
-hand; its ``pcg_solve_multi`` would take the dispatch route, with two
-permutations per product and the preconditioner in the original order).
+A preconditioner is in the caller's order, as in the JAX package. On a
+``ReorderedPlan`` the solve runs in the permuted space all the same (B
+permuted once on the way in and X once on the way out, by K6, the inner
+plan in between), and the preconditioner runs behind K6: each residual
+is permuted back to the caller's order, preconditioned, and permuted
+again (``apply_inv`` in, ``apply_perm`` out). The iterations are the
+JAX package's, whose PCG permutes around each product instead. A
+preconditioner built from ``A.permuted(csr)`` (the reordered matrix,
+whose IC(0) factor is the better one) declares it with ``perm=A.perm``
+(``pcg_solve_multi(..., perm=A.perm)``, ``make_ic0_preconditioner(...,
+perm=A.perm)``, ``spai_cg_solve_multi(..., perm=A.perm)``) and is
+applied to the permuted residuals directly. A
+declared ``perm`` that is not the plan's raises ValueError; so does one
+on a solve that does not run in the permuted space (a plan that is not
+reordered, or a ``matmat``, which takes the JAX route: the caller's
+product, no permuted-space solve).
 """
 
 from __future__ import annotations
@@ -42,24 +52,52 @@ from tpusparse_torch.solvers.cg import (
     CgResult,
     _cg_multi_loop,
     _dia_t_callable,
+    _nmajor_callable,
 )
+
+
+def _same_order(perm, plan_perm: torch.Tensor) -> bool:
+    """Whether a declared permutation (tensor or array) is the plan's."""
+    if perm is plan_perm:
+        return True
+    p = torch.as_tensor(perm).reshape(-1)
+    return p.shape == plan_perm.shape and torch.equal(
+        p.to(plan_perm.device, plan_perm.dtype), plan_perm)
 
 
 def pcg_solve_multi(A, B: torch.Tensor, apply_precond: Callable,
                     max_iters: int = 10000, tolerance: float = 1e-5,
                     matmat: Callable | None = None,
-                    record_history: bool = True) -> CgResult:
+                    record_history: bool = True, perm=None) -> CgResult:
     """Blocked multi-RHS PCG on A X = B for a plan ``A`` of
     ``plan_matrix`` (or ``matmat``, an (n, L) -> (n, L) product), with
     ``apply_precond(R) -> Z`` applying M^{-1} column-wise on (n, L)
-    blocks, in the plan's order (``A.permuted(csr)`` for a
-    ``ReorderedPlan``)."""
+    blocks, in the caller's order unless ``perm`` declares the plan's
+    (see the module docstring). ``perm`` defaults to
+    ``apply_precond.perm`` where it has one (``Ic0Preconditioner``)."""
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
+    if perm is None:
+        perm = getattr(apply_precond, "perm", None)
     if isinstance(A, ReorderedPlan) and matmat is None:
-        res = pcg_solve_multi(A.inner, A.apply_perm(B), apply_precond,
-                              max_iters, tolerance, None, record_history)
+        if perm is None:
+            def prec(R):
+                return A.apply_perm(apply_precond(A.apply_inv(R)))
+        elif _same_order(perm, A.perm):
+            def prec(R):
+                return apply_precond(R)
+        else:
+            raise ValueError("the preconditioner declares another order "
+                             "than the plan's (perm is not A.perm)")
+        res = pcg_solve_multi(A.inner, A.apply_perm(B), prec, max_iters,
+                              tolerance, None, record_history)
         return dataclasses.replace(res, x=A.apply_inv(res.x))
+    if perm is not None:
+        raise ValueError(
+            "the preconditioner declares a plan order (perm), but this "
+            "solve does not run in a reordered plan's permuted space")
+    if matmat is None:
+        matmat = _nmajor_callable(A, B)
     mm_t = _dia_t_callable(A) if matmat is None else None
     if mm_t is not None:
         def apply_t(RT):
@@ -81,24 +119,29 @@ def pcg_solve_multi(A, B: torch.Tensor, apply_precond: Callable,
 class Ic0Preconditioner:
     """z = (L L^T)^{-1} r: the backward solve of the forward one, each a
     ``JacobiTriSolver`` or a ``LevelScheduledSolver``; called on (n, L)
-    blocks or vectors."""
+    blocks or vectors. ``perm``: None for a factor of the matrix in the
+    caller's order, or the ``ReorderedPlan``'s ``perm`` for a factor of
+    ``A.permuted(csr)``."""
 
     fwd: Any
     bwd: Any
+    perm: Any = None
 
     def __call__(self, R: torch.Tensor) -> torch.Tensor:
         return self.bwd.solve(self.fwd.solve(R))
 
 
 def make_ic0_preconditioner(L_host, sweeps: int = 2, to_plan=None,
-                            num_rhs: int = 16, dtype=None, device="cuda"):
+                            num_rhs: int = 16, dtype=None, device="cuda",
+                            perm=None):
     """z = (L L^T)^{-1} r from a host IC(0) factor by device Jacobi
     triangular solves (``sweeps`` of each; exact once ``sweeps`` reaches
     the factor's dependency depth). The truncated composite is symmetric
     positive semi-definite at any sweep count (the backward operator is
     the forward one's transpose), so PCG stays valid. Pass the system's
     ``dtype`` for a float32 solve: the factor is float64, and uncast every
-    sweep would run in float64."""
+    sweep would run in float64. Pass ``perm=A.perm`` for the factor of a
+    ``ReorderedPlan``'s ``A.permuted(csr)``."""
     from tpusparse_torch.precond.trisolve import (
         jacobi_trisolve_lower,
         jacobi_trisolve_upper,
@@ -108,17 +151,19 @@ def make_ic0_preconditioner(L_host, sweeps: int = 2, to_plan=None,
         jacobi_trisolve_lower(L_host, sweeps, to_plan, num_rhs, dtype,
                               device),
         jacobi_trisolve_upper(L_host, sweeps, to_plan, num_rhs, dtype,
-                              device))
+                              device), perm)
 
 
-def make_exact_ic0_preconditioner(L_host, device="cuda", impl=None):
+def make_exact_ic0_preconditioner(L_host, device="cuda", impl=None,
+                                  perm=None):
     """z = (L L^T)^{-1} r exactly, by level-scheduled triangular solves
     (``precond/trisolve.LevelScheduledSolver``): the reference's exact
-    substitution PCG. Each application runs 2 x nlev eager steps."""
+    substitution PCG. Each application runs 2 x nlev eager steps.
+    ``perm`` as for ``make_ic0_preconditioner``."""
     from tpusparse_torch.precond.trisolve import (
         level_trisolve_lower,
         level_trisolve_upper,
     )
 
     return Ic0Preconditioner(level_trisolve_lower(L_host, device, impl),
-                             level_trisolve_upper(L_host, device, impl))
+                             level_trisolve_upper(L_host, device, impl), perm)

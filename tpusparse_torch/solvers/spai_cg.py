@@ -18,10 +18,12 @@ from tpusparse_torch.solvers.pcg import pcg_solve_multi
 
 def spai_cg_solve_multi(A, M, B: torch.Tensor, max_iters: int = 10000,
                         tolerance: float = 1e-5,
-                        record_history: bool = True) -> CgResult:
+                        record_history: bool = True,
+                        perm=None) -> CgResult:
     """Blocked multi-RHS CG on A X = B with z = M r, for plans ``A`` and
-    ``M`` of ``plan_matrix``. For a ``ReorderedPlan`` A the solve runs in
-    the permuted space (``pcg_solve_multi``): M is then the SPAI of
-    ``A.permuted(csr)``."""
+    ``M`` of ``plan_matrix``. M is in the caller's order, as in the JAX
+    package; for a ``ReorderedPlan`` A whose M is the SPAI of
+    ``A.permuted(csr)``, pass ``perm=A.perm`` (``pcg_solve_multi``)."""
     return pcg_solve_multi(A, B, lambda R: spmm(M, R), max_iters,
-                           tolerance, record_history=record_history)
+                           tolerance, record_history=record_history,
+                           perm=perm)

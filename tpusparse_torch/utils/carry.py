@@ -40,6 +40,20 @@ type; a JAX host CSR holds float64 values even for a float32 plan):
     explicit zero both read 0 and are dropped alike, so the rebuilt CSR
     equals the original only for a matrix with no explicit zeros.
 
+  * ``"dia_nmajor"`` — a ``DiaNMajorDevice`` (K7) from a JAX
+    ``DiaNMajorDevice``: ``mask_g`` (((nb + 2) S, W) int32 packed
+    words), ``S``, ``L`` (the padded lane count Lp), ``offsets``,
+    ``vals`` and ``shape``. A packed word holds the presence fields of
+    G = 128 / Lp consecutive rows, F = 32 / G bits each (field g of word
+    (t, wi) = bits of planes [wi F, (wi + 1) F) of row t G + g,
+    ``tpusparse/kernels/dia_nmajor.py:148-173``); the guard blocks (the
+    first and last S rows) are dropped and the fields unpacked to one
+    word per row, bit k = plane k, as K1 reads them. Rows past
+    ``num_rows`` must be the zero pad;
+  * ``"bsr"`` — a ``BcsrMatrix`` on the device (K8, K8d) from a JAX
+    ``BcsrMatrix``: ``block_row_offsets``, ``block_col_indices``,
+    ``blocks`` ((num_blocks, br, bc)) and ``shape``;
+
   * ``"reordered"`` — a ``ReorderedPlan`` from a JAX ``ReorderedPlan``:
     ``inner_kind`` and ``inner`` (the inner plan's kind and arrays, as
     above), ``perm`` and ``inv_perm`` (the JAX plan's gather indices),
@@ -55,8 +69,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpusparse_torch.formats.bcsr import BcsrMatrix
 from tpusparse_torch.formats.csr import CsrMatrix, value_dtype
 from tpusparse_torch.formats.dia import PLANE_DTYPES, DiaDevice
+from tpusparse_torch.kernels.dia_nmajor import DiaNMajorDevice
 from tpusparse_torch.kernels.dia_stream import from_mask_words
 from tpusparse_torch.kernels.ell_spmm import to_device_row_split
 from tpusparse_torch.kernels.merge_spmv import to_device_merge
@@ -65,7 +81,7 @@ from tpusparse_torch.ops.reorder import ReorderedPlan
 
 LANES = 128  # rows per row block and columns per column block of ELL
 KINDS = ("dia_masked", "dia_masked_df", "dia", "dia_planes", "dia_df",
-         "csr", "row_split", "ell", "reordered")
+         "dia_nmajor", "csr", "row_split", "ell", "bsr", "reordered")
 
 
 def plan_from_arrays(kind: str, arrays: dict, device, dtype=None):
@@ -100,6 +116,17 @@ def plan_from_arrays(kind: str, arrays: dict, device, dtype=None):
             vals = arrays["vals"]
         return from_mask_words(n_rows, n_cols, arrays["offsets"], vals,
                                words[:n_rows], device, dtype)
+    if kind == "dia_nmajor":
+        words = _nmajor_row_words(arrays, n_rows)
+        band = from_mask_words(n_rows, n_cols, arrays["offsets"],
+                               arrays["vals"], words, device, dtype)
+        return DiaNMajorDevice(band, int(arrays["L"]))
+    if kind == "bsr":
+        blocks = np.asarray(arrays["blocks"])
+        return BcsrMatrix(n_rows, n_cols, blocks.shape[1], blocks.shape[2],
+                          np.asarray(arrays["block_row_offsets"]),
+                          np.asarray(arrays["block_col_indices"]),
+                          blocks).to(device, dtype)
     if kind == "ell":
         csr = _csr_of_ell(arrays, n_rows, n_cols)
     else:
@@ -109,6 +136,27 @@ def plan_from_arrays(kind: str, arrays: dict, device, dtype=None):
     if kind == "csr":
         return to_device_merge(csr, device, dtype)
     return to_device_row_split(csr, device, dtype)
+
+
+def _nmajor_row_words(arrays: dict, n_rows: int) -> np.ndarray:
+    """(n_rows,) uint32 presence words (bit k = plane k) unpacked from a
+    JAX n-major plan's guarded, packed ``mask_g``."""
+    S, Lp = int(arrays["S"]), int(arrays["L"])
+    G = LANES // Lp
+    F = 32 // G
+    packed = np.asarray(arrays["mask_g"]).view(np.uint32)
+    words = packed[S:packed.shape[0] - S]                # (T, W)
+    rows = np.zeros((words.shape[0], G), dtype=np.uint32)
+    field = np.uint32((1 << F) - 1)
+    for wi in range(words.shape[1]):
+        for g in range(G):
+            f = (words[:, wi] >> np.uint32(F * g)) & field
+            rows[:, g] |= f << np.uint32(F * wi)
+    rows = rows.reshape(-1)
+    if (np.any(packed[:S] != 0) or np.any(packed[packed.shape[0] - S:] != 0)
+            or np.any(rows[n_rows:] != 0)):
+        raise ValueError("mask words past num_rows must be the zero pad")
+    return rows[:n_rows]
 
 
 def _dia_of_planes(kind, arrays, n_rows, n_cols, device) -> DiaDevice:
