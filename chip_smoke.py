@@ -44,7 +44,9 @@ Phases, each printed on its own lines:
       the stated error bounds (u = 2^-24): K1 at L = 1, 4 and 16; K2,
       and K3 and K4 at L = 1, 3, 16 and 32, on lap3d-48, rmat-18-ef16,
       wheel-100000, ``data/real/*.mtx``, an empty-rows and an nnz = 0
-      CSR; two runs of K2, K3 and K4 must be bitwise equal; K5 with
+      CSR; two runs of K2, K3 and K4 must be bitwise equal, and K4 equal
+      bit for bit to its plain version run on CPU copies of the plan and
+      X on every fixture (K4d likewise); K5 with
       float32 and bf16 planes at L = 1, 4 and 16 on var-7-48, var-27-32,
       Trefethen_200, a rectangular band and the DIA part of a hybrid,
       bitwise equal to its plain version and within 2Ku|A||x| of
@@ -79,7 +81,10 @@ Phases, each printed on its own lines:
       ``'row_split'`` (K4), and at rmat-18-ef16 on AUTO (must plan
       merge: K3) and ``'row_split'`` (K4); each result checked against a
       float64 product and timed beside its plain version, the library
-      call and the bound;
+      call and the bound; K4's result also against its plain version on
+      the same X (ULP and normwise on the card, bitwise on CPU copies);
+      each row-split plan's work-row table (work rows, split rows and
+      chunks) and build time printed;
   [7] ``cg_solve_multi`` at L = 16, tol 1e-5: lap3d-160 on AUTO (K1,
       (L, n) state) with B = A X_true, rmat_spd(17, 4) on AUTO (K3) and
       gr_30_30 on ``'row_split'`` (K4); every lane must converge with a
@@ -102,8 +107,10 @@ Phases, each printed on its own lines:
       rmat_spd-17-ef4 (AUTO must plan merge: ``cg_solve`` on K2d,
       ``cg_solve_refined`` with K2 inside); every refinement must reach
       a float64 true residual < 1e-11;
- [11] float64 at L = 16: ``spmm`` on lap3d-160 AUTO (K1d on (L, n)),
-      on rmat-18-ef16 ``'merge'`` (K3d) and ``'row_split'`` (K4d);
+ [11] float64 at L = 16: ``spmm`` on lap3d-160 AUTO (K1d on (L, n)) and
+      ``'row_split'`` (K4d), on rmat-18-ef16 ``'merge'`` (K3d) and
+      ``'row_split'`` (K4d), K4d's result also against its plain version
+      (within 2(nnz_i + 2)u|A||X| on the card, bitwise on CPU copies);
       ``cg_solve_multi_refined`` on lap3d-160 to 1e-12 on every lane;
   [12] the reordered path: lap3d-160 scrambled by a symmetric permutation
       from ``default_rng(5)``; ``reorder='auto'`` must plan RCM;
@@ -339,15 +346,57 @@ def row_bound(A, X):
     return Y64, (nnz_i + 2) * U * AX, AX
 
 
-def spmm_vs_plain(kernel, name, csr, seed):
+def cpu_copy_equal(plan, plain, csr, dtype, X, Y) -> bool:
+    """Whether ``Y`` equals bit for bit the plain version run on the CPU
+    on a CPU plan of ``csr`` and a CPU copy of ``X``."""
+    return torch.equal(Y.cpu(), plain(plan(csr, "cpu", dtype), X.cpu()))
+
+
+def row_split_vs_plain(phase, tag, P, csr, X, Y):
+    """The Y of a ``row_split`` plan ``P`` of ``csr`` on a main path
+    against K4's (K4d's) plain version on the same X: on the card, the
+    ULP compare and normwise 1e-5 in float32 or within 2(nnz_i + 2)u|A||X|
+    in float64; and bit for bit on CPU copies of the plan and X."""
+    from tpusparse_torch.kernels import ell_spmm
+    from tpusparse_torch.ops.reference import csr_matmat
+    from tpusparse_torch.utils.compare import compare_results
+
+    f64 = Y.dtype == torch.float64
+    what = f"{tag} {'K4d' if f64 else 'K4'}"
+    with uncounted():
+        Yp = ell_spmm.spmm_row_split_plain(P, X)
+    err = float((Y - Yp).abs().max())
+    AX = csr_matmat(P.num_rows, P.row_offsets, P.col_indices,
+                    P.values.abs().double(), X.abs().double())
+    if f64:
+        nnz_i = (P.row_offsets[1:] - P.row_offsets[:-1]).double()[:, None]
+        check(((Y - Yp).abs() <= 2 * (nnz_i + 2) * U64 * AX).all(),
+              f"{what}: within 2(nnz_i+2)u|A||X| of plain")
+    else:
+        check(compare_results(Y, Yp)[0], f"{what}: ULP compare vs plain")
+        check(err <= 1e-5 * float(AX.max()),
+              f"{what}: normwise bound vs plain")
+    t0 = time.perf_counter()
+    check(cpu_copy_equal(ell_spmm.to_device_row_split,
+                         ell_spmm.spmm_row_split_plain, csr, Y.dtype, X, Y),
+          f"{what}: bitwise equal to plain on CPU copies")
+    print(f"[{phase}] {what}: max|kernel-plain| on the card {err:.3e}, "
+          f"{'2(nnz_i+2)u bound' if f64 else 'ULP and normwise'} vs plain "
+          f"PASS, bitwise equal to plain on CPU copies PASS (CPU "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def spmm_vs_plain(kernel, name, csr, seed, cpu_copy=False):
     """K3 or K4 against its plain version (ULP compare, normwise 1e-5)
     and a float64 product (|d|_il <= (nnz_i + 2) u (|A||X|)_il) at each
-    L of SPMM_LS; two runs bitwise equal. Returns max |kernel - plain|."""
+    L of SPMM_LS; two runs bitwise equal; with ``cpu_copy`` also bitwise
+    equal to the plain version on CPU copies. Returns max |kernel -
+    plain|."""
     from tpusparse_torch.utils.compare import compare_results
 
     plan, matmat, plain = spmm_kernels()[kernel]
     A = plan(csr, "cuda")
-    worst = 0.0
+    worst = cpu_s = 0.0
     for L in SPMM_LS:
         X = rand(seed + L, (A.num_cols, L))
         Y1 = matmat(A, X)
@@ -363,11 +412,17 @@ def spmm_vs_plain(kernel, name, csr, seed):
         check(err <= 1e-5 * amax, f"{what}: normwise bound vs plain")
         check(((Y1.double() - Y64).abs() <= bound).all(),
               f"{what}: row bound vs float64")
+        t0 = time.perf_counter()
+        check(not cpu_copy or cpu_copy_equal(plan, plain, csr,
+                                             torch.float32, X, Y1),
+              f"{what}: bitwise equal to plain on CPU copies")
+        cpu_s += time.perf_counter() - t0
         worst = max(worst, err)
     print(f"[2] {kernel} {name} {A.num_rows}x{A.num_cols} nnz {A.nnz} "
           f"L={list(SPMM_LS)}: max|{kernel}-plain| {worst:.3e}, ULP and "
           f"normwise vs plain PASS, row bound vs float64 PASS, bitwise "
-          f"repeat PASS")
+          f"repeat PASS" + (f", bitwise equal to plain on CPU copies PASS "
+                            f"(CPU {cpu_s:.1f} s)" if cpu_copy else ""))
     return worst
 
 
@@ -429,10 +484,12 @@ def kd_dia_vs_plain(kernel, name, D, L, seed):
     return float((Y - Yp).abs().max())
 
 
-def kd_csr_vs_plain(kernel, name, csr, seed):
+def kd_csr_vs_plain(kernel, name, csr, seed, cpu_copy=False):
     """K2d (L = 1), K3d or K4d (L in F64_LS) against its plain version
     and the ``torch.sparse`` float64 product: |d|_il <= 2 (nnz_i + 2) u
-    (|A||X|)_il; two runs bitwise equal. Returns max |kernel - plain|."""
+    (|A||X|)_il; two runs bitwise equal; with ``cpu_copy`` also bitwise
+    equal to the plain version on CPU copies. Returns max |kernel -
+    plain|."""
     from tpusparse_torch.kernels import ell_spmm, merge_spmv, spmm_merge
     from tpusparse_torch.ops.reference import csr_matmat
 
@@ -448,7 +505,7 @@ def kd_csr_vs_plain(kernel, name, csr, seed):
     A = plan(csr, "cuda", torch.float64)
     lib = library_csr(A) if A.nnz else None
     nnz_i = (A.row_offsets[1:] - A.row_offsets[:-1]).double()[:, None]
-    worst = 0.0
+    worst = cpu_s = 0.0
     for L in ((1,) if kernel == "K2d" else F64_LS):
         X = rand64(seed + L, (A.num_cols, L))
         Y1, Y2, Yp = matmat(A, X), matmat(A, X), plain(A, X)
@@ -463,11 +520,18 @@ def kd_csr_vs_plain(kernel, name, csr, seed):
         check(((Y1 - Yp).abs() <= bound).all(), f"{what}: bound vs plain")
         check(((Y1 - Yl).abs() <= bound).all(),
               f"{what}: bound vs torch.sparse float64")
+        t0 = time.perf_counter()
+        check(not cpu_copy or cpu_copy_equal(plan, plain, csr,
+                                             torch.float64, X, Y1),
+              f"{what}: bitwise equal to plain on CPU copies")
+        cpu_s += time.perf_counter() - t0
         if Y1.numel():
             worst = max(worst, float((Y1 - Yp).abs().max()))
     print(f"[2] {kernel} {name} {A.num_rows}x{A.num_cols} nnz {A.nnz}: "
           f"max|{kernel}-plain| {worst:.3e}, within 2(nnz_i+2)u|A||x| of "
-          f"plain and of torch.sparse float64, bitwise repeat PASS")
+          f"plain and of torch.sparse float64, bitwise repeat PASS"
+          + (f", bitwise equal to plain on CPU copies PASS (CPU "
+             f"{cpu_s:.1f} s)" if cpu_copy else ""))
     return worst
 
 
@@ -556,11 +620,28 @@ def slice_spmv(phase, tag, csr, seed):
     return A, M, times
 
 
-def slice_spmm(tag, C, plans, seed):
+def row_split_plan(phase, tag, csr, dtype=np.float32):
+    """``plan_matrix(csr, 'row_split', L=L_MULTI)`` on the card, with its
+    build time and its work-row table printed."""
+    from tpusparse_torch import plan_matrix
+    from tpusparse_torch.kernels import ell_spmm
+
+    A, ms = timed(lambda: plan_matrix(csr, "row_split", dtype=dtype,
+                                      L=L_MULTI, device="cuda"))
+    T = A.table
+    print(f"[{phase}] {tag} row_split plan ({np.dtype(dtype).name}): "
+          f"{T.num_work_rows} work rows, {T.num_split} rows split into "
+          f"{T.num_chunks} chunks of C = {ell_spmm.ROW_CHUNK}; built in "
+          f"{ms:.1f} ms", flush=True)
+    return A
+
+
+def slice_spmm(tag, csr, C, plans, seed):
     """``spmm`` at L_MULTI through each (label, plan, kernel, expected
-    family) of ``plans`` of one matrix, whose CSR operand on the card is
-    ``C``: check against float64, time the call beside the plain
-    version, the library call and the bound."""
+    family) of ``plans`` of the host matrix ``csr``, whose CSR operand on
+    the card is ``C``: check against float64 (K4 also against its plain
+    version), time the call beside the plain version, the library call
+    and the bound."""
     from tpusparse_torch import plan_kind, spmm
     from tpusparse_torch.bench.models import (
         dia_masked_bytes,
@@ -584,6 +665,8 @@ def slice_spmm(tag, C, plans, seed):
               f"{tag} {label}: finite Y of shape ({C.num_rows}, {L_MULTI})")
         check(((Y.double() - Y64).abs() <= bound).all(),
               f"{tag} {label}: Y within (nnz_i+2)u|A||X| of float64")
+        if kernel == "K4":
+            row_split_vs_plain(6, f"{tag} spmm {label}", P, csr, X, Y)
         if kernel == "K1":
             # the kernel alone on K1's (L, n) layout, and through spmm,
             # which transposes X in and Y out
@@ -800,10 +883,11 @@ def slice_fp64_spmv(tag, csr, strategy, kernel, seed):
     return A, t
 
 
-def slice_fp64_spmm(tag, C, plans, seed):
+def slice_fp64_spmm(tag, csr, C, plans, seed):
     """[11] ``spmm`` at L_MULTI through each (label, plan, kernel) of
-    ``plans`` of one matrix, whose float64 CSR on the card is ``C``:
-    within 2(nnz_i + 2)u|A||X| of its float64 product, timed beside the
+    ``plans`` of the host matrix ``csr``, whose float64 CSR on the card is
+    ``C``: within 2(nnz_i + 2)u|A||X| of its float64 product (K4d also
+    held to its plain version), timed beside the
     plain version, ``torch.sparse`` in float64 and the float64 bound (K1d
     alone on (L, n) for a masked plan)."""
     from tpusparse_torch import spmm
@@ -831,6 +915,9 @@ def slice_fp64_spmm(tag, C, plans, seed):
               and torch.isfinite(Y).all(), f"{tag} {label}: finite Y")
         check(((Y - Y64).abs() <= 2 * (nnz_i + 2) * U64 * AX).all(),
               f"{tag} {label}: Y within 2(nnz_i+2)u|A||X| of float64")
+        if kernel == "K4d":
+            row_split_vs_plain(11, f"{tag} spmm float64 {label}", P, csr, X,
+                               Y)
         if kernel == "K1d":
             XT = X.T.contiguous()
             t = time_pair(lambda: dia_stream.spmm_dia_stream_t(P.dia, XT),
@@ -1728,7 +1815,8 @@ def main() -> int:
                  for i, (name, csr) in enumerate(fixtures))
     k3_err = max(spmm_vs_plain("K3", name, csr, 40 + i)
                  for i, (name, csr) in enumerate(fixtures))
-    k4_err = max(spmm_vs_plain("K4", name, csr, 60 + i)
+    # K4 and K4d also bitwise against their plain versions on CPU copies
+    k4_err = max(spmm_vs_plain("K4", name, csr, 60 + i, cpu_copy=True)
                  for i, (name, csr) in enumerate(fixtures))
     rmat18 = fixtures[1][1]
     k5_err = max(
@@ -1740,8 +1828,10 @@ def main() -> int:
     err64 = {"K1d": max(kd_dia_vs_plain("K1d", "lap3d-48", D48d, L, 90 + L)
                         for L in F64_LS)}
     for kernel, seed in (("K2d", 100), ("K3d", 120), ("K4d", 140)):
-        err64[kernel] = max(kd_csr_vs_plain(kernel, name, csr, seed + i)
-                            for i, (name, csr) in enumerate(fixtures))
+        err64[kernel] = max(
+            kd_csr_vs_plain(kernel, name, csr, seed + i,
+                            cpu_copy=kernel == "K4d")
+            for i, (name, csr) in enumerate(fixtures))
     err64["K5d"] = max(
         kd_dia_vs_plain("K5d", name, dia_planes_of(csr, torch.float64), L,
                         160 + L)
@@ -1809,15 +1899,15 @@ def main() -> int:
     del A160, M160
     A16 = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda")
     M16 = plan_matrix(lap160, "merge", L=L_MULTI, device="cuda")
-    t6 = slice_spmm("lap3d-160", M16, (
+    t6 = slice_spmm("lap3d-160", lap160, M16, (
         ("auto", A16, "K1", "dia"), ("merge", M16, "K3", "merge"),
-        ("row_split", plan_matrix(lap160, "row_split", L=L_MULTI,
-                                  device="cuda"), "K4", "row_split")), 34)
+        ("row_split", row_split_plan(6, "lap3d-160", lap160), "K4",
+         "row_split")), 34)
     Mr = plan_matrix(rmat18, "auto", L=L_MULTI, device="cuda")
-    slice_spmm("rmat-18-ef16", Mr, (
+    t6r = slice_spmm("rmat-18-ef16", rmat18, Mr, (
         ("auto", Mr, "K3", "merge"),
-        ("row_split", plan_matrix(rmat18, "row_split", L=L_MULTI,
-                                  device="cuda"), "K4", "row_split")), 35)
+        ("row_split", row_split_plan(6, "rmat-18-ef16", rmat18), "K4",
+         "row_split")), 35)
     del Mr
     X_true = torch.from_numpy(np.random.default_rng(36).standard_normal(
         (lap160.num_cols, L_MULTI))).cuda()
@@ -1958,8 +2048,10 @@ def main() -> int:
     check(plan_kind(M64) == "dia" and M64.rest is None and isinstance(
         M64.dia, dia_stream.DiaStreamDevice), "lap3d-160 AUTO float64 at "
           "L=16 plans K1d")
-    t11_k1 = slice_fp64_spmm("lap3d-160", C64, (("auto", M64, "K1d"),),
-                             56)["K1d"]
+    t11_lap = slice_fp64_spmm("lap3d-160", lap160, C64, (
+        ("auto", M64, "K1d"),
+        ("row_split", row_split_plan(11, "lap3d-160", lap160, np.float64),
+         "K4d")), 56)
     X_true = rand64(57, (lap160.num_cols, L_MULTI))
     B64 = csr_matmat(C64.num_rows, C64.row_offsets, C64.col_indices,
                      C64.values, X_true)
@@ -1969,11 +2061,11 @@ def main() -> int:
     del C64, M64, M32, X_true, B64
     torch.cuda.empty_cache()
     Cr = plan_matrix(rmat18, "reference", dtype=np.float64, device="cuda")
-    t11 = slice_fp64_spmm("rmat-18-ef16", Cr, (
+    t11 = slice_fp64_spmm("rmat-18-ef16", rmat18, Cr, (
         ("merge", plan_matrix(rmat18, "merge", dtype=np.float64, L=L_MULTI,
                               device="cuda"), "K3d"),
-        ("row_split", plan_matrix(rmat18, "row_split", dtype=np.float64,
-                                  L=L_MULTI, device="cuda"), "K4d")), 58)
+        ("row_split", row_split_plan(11, "rmat-18-ef16", rmat18,
+                                     np.float64), "K4d")), 58)
     del Cr
     path6 = read_counts("float64 multi-RHS path", ("K1d", "K3d", "K4d"))
     torch.cuda.empty_cache()
@@ -2077,6 +2169,9 @@ def main() -> int:
         entry("K4 row-split CSR SpMM", "rowsplit_spmm.cu",
               "tpusparse/kernels/ell_spmm.py:132", "K4", k4_err,
               t6["K4"], f"lap3d-160 spmm L={L_MULTI}, device time"),
+        entry("K4 row-split CSR SpMM", "rowsplit_spmm.cu",
+              "tpusparse/kernels/ell_spmm.py:132", "K4", k4_err,
+              t6r["K4"], f"rmat-18-ef16 spmm L={L_MULTI}, device time"),
         entry("K5 value-plane DIA SpMV, f32 planes", "dia_planes.cu", b2,
               "K5", k5_err, t8_7["f32"], "var-7-160 spmv L=1, device time"),
         entry("K5 value-plane DIA SpMV, f32 planes", "dia_planes.cu", b2,
@@ -2098,8 +2193,8 @@ def main() -> int:
               t10_k1, "lap3d-160 spmv float64 L=1, device time"),
         entry("K1d masked DIA SpMM, float64", "dia_masked.cu",
               "tpusparse/kernels/dia_stream.py:424", "K1d", err64["K1d"],
-              t11_k1, f"lap3d-160 spmm float64 L={L_MULTI} on (L, n), "
-              "device time"),
+              t11_lap["K1d"], f"lap3d-160 spmm float64 L={L_MULTI} on (L, "
+              "n), device time"),
         entry("K2d merge-path CSR SpMV, float64", "merge_spmv.cu",
               "tpusparse/kernels/merge_df.py:287", "K2d", err64["K2d"],
               t10_k2, "rmat-18-ef16 spmv float64 L=1, device time"),
@@ -2110,6 +2205,10 @@ def main() -> int:
         entry("K4d row-split CSR SpMM, float64", "rowsplit_spmm.cu",
               "tpusparse/kernels/ell_df.py:186", "K4d", err64["K4d"],
               t11["K4d"], f"rmat-18-ef16 spmm float64 L={L_MULTI}, device "
+              "time"),
+        entry("K4d row-split CSR SpMM, float64", "rowsplit_spmm.cu",
+              "tpusparse/kernels/ell_df.py:186", "K4d", err64["K4d"],
+              t11_lap["K4d"], f"lap3d-160 spmm float64 L={L_MULTI}, device "
               "time"),
         entry("K5d value-plane DIA SpMV, float64 planes", "dia_planes.cu",
               "tpusparse/kernels/dia_stream.py:332", "K5d", err64["K5d"],

@@ -201,6 +201,64 @@ def test_cg_multi_on_card_matches_cpu(cuda):
                          <= 1e-4 * torch.linalg.norm(r_cpu.x, dim=0))
 
 
+def _long_row_csr():
+    """Rows of 5, 10 C + 3, 0, C, C + 1 and 17 nonzeros (C the row-split
+    chunk) at seeded random columns of 3000."""
+    C = ell_spmm.ROW_CHUNK
+    rng = np.random.default_rng(4)
+    lengths = np.array([5, 10 * C + 3, 0, C, C + 1, 17])
+    ro = np.zeros(lengths.shape[0] + 1, dtype=np.int32)
+    np.cumsum(lengths, out=ro[1:])
+    cols = np.concatenate([np.sort(rng.integers(0, 3000, n))
+                           for n in lengths]).astype(np.int32)
+    return CsrMatrix(lengths.shape[0], 3000, ro, cols,
+                     rng.standard_normal(ro[-1]))
+
+
+ROWSPLIT_CASES = {
+    "long-row": _long_row_csr,
+    "rmat-14": lambda: gen.make_rmat(14, 16).to_csr(),
+}
+
+
+def _k4_vs_cpu_plain(csr, dtype, L, dev):
+    """K4 (or K4d) twice on the card against the plain version on a CPU
+    copy of the plan and X: one launch a call, all three bitwise equal."""
+    A = ell_spmm.to_device_row_split(csr, dev, dtype)
+    Ac = ell_spmm.to_device_row_split(csr, "cpu", dtype)
+    X = torch.from_numpy(np.random.default_rng(L).standard_normal(
+        (csr.num_cols, L))).to(dtype)
+    attr = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    before = getattr(ell_spmm, attr)
+    Y1 = ell_spmm.row_split_matmat(A, X.to(dev))
+    assert getattr(ell_spmm, attr) == before + (1 if A.num_rows else 0)
+    Y2 = ell_spmm.row_split_matmat(A, X.to(dev))
+    assert getattr(ell_spmm, attr) == before + (2 if A.num_rows else 0)
+    assert Y1.dtype == dtype and Y1.shape == (csr.num_rows, L)
+    assert torch.equal(Y1, Y2)
+    assert torch.equal(Y1.cpu(), ell_spmm.row_split_matmat(Ac, X))
+    return A
+
+
+@pytest.mark.parametrize("L", [1, 3, 16, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["K4", "K4d"])
+@pytest.mark.parametrize("name", list(ROWSPLIT_CASES))
+def test_k4_split_rows_match_cpu_plain_bitwise(cuda, name, dtype, L):
+    A = _k4_vs_cpu_plain(ROWSPLIT_CASES[name](), dtype, L, cuda)
+    assert A.table.num_chunks > 0
+
+
+@pytest.mark.parametrize("L", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["K4", "K4d"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_k4_cases_match_cpu_plain_bitwise(cuda, name, dtype, L):
+    """The small fixtures: a split wheel hub, empty rows, nnz = 0 and
+    num_rows = 0."""
+    _k4_vs_cpu_plain(CASES[name](), dtype, L, cuda)
+
+
 def _planes(csr, dev, plane_dtype=torch.float32):
     host, rest = partition_dia(csr, select_diagonals(csr))
     assert rest.nnz == 0

@@ -14,8 +14,8 @@ kernel or raises.
                tpusparse/kernels/merge_spmv.py::_spmv_tiles)
   spmm_merge   K3, merge-path CSR SpMM (replaces
                tpusparse/kernels/spmm_merge.py::_spmm_tiles)
-  ell_spmm     K4, row-split CSR SpMM (replaces
-               tpusparse/kernels/ell_spmm.py::_spmm_ell)
+  ell_spmm     K4, row-split CSR SpMM over work rows, long rows split
+               (replaces tpusparse/kernels/ell_spmm.py::_spmm_ell)
   permute      K6, exact row permutation (replaces
                tpusparse/kernels/permute.py::_permute_call)
   dia_nmajor   K7, masked DIA SpMM on row-major (n, L) blocks (replaces

@@ -61,9 +61,10 @@ SIGNATURES = {
                        _I32, _P),
     "tps_merge_spmm_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
                            _I32, _I32, _P),
-    # row_offsets, col_indices, values, X, Y, num_rows, L, stream
-    "tps_rowsplit_spmm": (_P, _P, _P, _P, _P, _I32, _I32, _P),
-    "tps_rowsplit_spmm_f64": (_P, _P, _P, _P, _P, _I32, _I32, _P),
+    # work_offsets, work_dest, col_indices, values, X, Y, partials,
+    # split_rows, split_offsets, num_work, num_split, L, stream
+    "tps_rowsplit_spmm": (*(_P,) * 9, *(_I32,) * 3, _P),
+    "tps_rowsplit_spmm_f64": (*(_P,) * 9, *(_I32,) * 3, _P),
     # mask, x, y, n, L, K, offsets (host int*), vals (host float*),
     # stream: K7, float32 only
     "tps_dia_nmajor": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
