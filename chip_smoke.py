@@ -72,10 +72,13 @@ Phases, each printed on its own lines:
       ``torch.sparse`` CSR product's (the library call, never on the
       path) and the bound (bytes or operations over the H100's peaks,
       ``bench/models.bound_ms``);
-  [4] the same at lap3d-160 (4.1M rows, beyond L2), then CG on AUTO
-      (must converge, float64 true residual < 1e-4) and CG through K2
-      on rmat_spd(17, 4) and gr_30_30, each solved twice and timed on
-      the second solve;
+  [4] the same at lap3d-160 (4.1M rows, beyond L2), with the
+      ``torch.profiler`` split of one merge ``spmv`` (exactly one
+      consume and one fix-up launch: no search, no elementwise pass);
+      ``spmv`` on the merge plan of rmat-18-ef16 (K2) timed the same
+      way, outside the counts; then CG on AUTO (must converge, float64
+      true residual < 1e-4) and CG through K2 on rmat_spd(17, 4) and
+      gr_30_30, each solved twice and timed on the second solve;
   [6] the multi-RHS slice at L = 16: ``spmm`` at lap3d-160 on AUTO (must
       be a pure masked DIA plan: K1), ``'merge'`` (K3) and
       ``'row_split'`` (K4), and at rmat-18-ef16 on AUTO (must plan
@@ -103,7 +106,9 @@ Phases, each printed on its own lines:
       float64 and the float64 bound; ``cg_solve`` to 1e-10;
       ``cg_solve_refined`` with the K1 float32 plan inside to 1e-12),
       var-7-160 (AUTO must plan K5d: ``spmv``, ``cg_solve_refined``
-      with K5 inside), rmat-18-ef16 (``spmv`` on ``'merge'``: K2d) and
+      with K5 inside), rmat-18-ef16 (``spmv`` on ``'merge'``: K2d, with
+      the profiler split of one call as in [4]; lap3d-160 on
+      ``'merge'`` timed the same way, outside the counts) and
       rmat_spd-17-ef4 (AUTO must plan merge: ``cg_solve`` on K2d,
       ``cg_solve_refined`` with K2 inside); every refinement must reach
       a float64 true residual < 1e-11;
@@ -1066,6 +1071,69 @@ def merge_vs_plain(phase, tag, P, X):
           f" of plain and of float64", flush=True)
 
 
+# the kernels one K2 or K2d call launches: no search, no elementwise pass
+K2_KERNELS = ("merge_consume_kernel", "merge_fixup_kernel")
+
+
+def k2_spmv_times(tag, csr, seed):
+    """[4] ``spmv`` on the merge plan of ``csr`` (K2), outside the launch
+    counts: y within (nnz_i + 2)u|A||x| of float64, timed beside the
+    plain version, ``torch.sparse`` and the bound."""
+    from tpusparse_torch import plan_matrix, spmv
+    from tpusparse_torch.bench.models import spmm_bytes, spmv_flops
+    from tpusparse_torch.bench.timing import cuda_time_ms
+    from tpusparse_torch.kernels import merge_spmv
+    from tpusparse_torch.ops.reference import csr_matvec
+
+    M = plan_matrix(csr, "merge", device="cuda")
+    x = rand(seed, csr.num_cols)
+    with uncounted():
+        y = spmv(M, x)
+        args = (M.num_rows, M.row_offsets, M.col_indices)
+        y64 = csr_matvec(*args, M.values.double(), x.double())
+        ax = csr_matvec(*args, M.values.abs().double(), x.abs().double())
+        nnz_i = (M.row_offsets[1:] - M.row_offsets[:-1]).double()
+        check(torch.isfinite(y).all() and y.shape == (csr.num_rows,),
+              f"{tag} merge: finite y of shape ({csr.num_rows},)")
+        check(((y.double() - y64).abs() <= (nnz_i + 2) * U * ax).all(),
+              f"{tag} merge: y within (nnz_i+2)u|A||x| of float64")
+        t = time_pair(lambda: spmv(M, x),
+                      lambda: merge_spmv.spmv_merge_plain(M, x))
+        lib = library_csr(M)
+        t["library"] = cuda_time_ms(lambda: lib @ x)
+    t["bound"] = report(4, f"{tag} spmv merge (K2)", t, spmv_flops(csr.nnz),
+                        spmm_bytes(csr.nnz, csr.num_rows, csr.num_cols))
+    return t
+
+
+def launch_split(phase, what, fn, expect, calls=20):
+    """Print what one call of ``fn`` launches on the card, from
+    ``torch.profiler``: launches and device microseconds per call by
+    kernel; fail unless it launches a kernel whose name holds each string
+    of ``expect`` and no other kernel. Not counted. (Late in a long
+    process the profiler may miss some of the events: the launches per
+    call it prints can then fall below 1.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with uncounted():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    split = {e.key: (e.count / calls, e.self_device_time_total / calls)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    print(f"[{phase}] {what}, torch.profiler, per call: " + "; ".join(
+        f"{k[:70]} x{n:g} {us:.2f} us" for k, (n, us) in split.items()),
+          flush=True)
+    check(len(split) == len(expect) and all(
+        sum(name in k for k in split) == 1 for name in expect),
+          f"{what}: a call launches {', '.join(expect)} and nothing else")
+
+
 def k6_vs_plain(phase, tag, A, B):
     """K6 of a reordered plan on a main path's operand: ``apply_perm``
     and ``apply_inv`` bitwise equal to ``index_select``, and the round
@@ -1882,6 +1950,12 @@ def main() -> int:
     reset_counts()
     slice_spmv(3, "lap3d-48", lap48, 30)
     A160, M160, t160 = slice_spmv(4, "lap3d-160", lap160, 31)
+    from tpusparse_torch import spmv
+
+    x160 = rand(31, lap160.num_cols)
+    launch_split(4, "lap3d-160 spmv merge (K2)", lambda: spmv(M160, x160),
+                 K2_KERNELS)
+    t4_rmat = k2_spmv_times("rmat-18-ef16", rmat18, 39)
     x_true = np.random.default_rng(32).standard_normal(lap160.num_cols)
     b160 = (lap160.to_scipy() @ x_true).astype(np.float32)
     it_cg160 = run_cg("lap3d-160 auto (K1)", A160, lap160,
@@ -2023,7 +2097,15 @@ def main() -> int:
               lambda: cg_solve_refined(V32, V64, b7), var7, b7, REFINE_TOL,
               REFINE_TRUE_MAX)
     del V32, V64, b7
-    _, t10_k2 = slice_fp64_spmv("rmat-18-ef16", rmat18, "merge", "K2d", 54)
+    R18, t10_k2 = slice_fp64_spmv("rmat-18-ef16", rmat18, "merge", "K2d",
+                                  54)
+    x18 = rand64(54, rmat18.num_cols)
+    launch_split(10, "rmat-18-ef16 spmv float64 merge (K2d)",
+                 lambda: spmv(R18, x18), K2_KERNELS)
+    del R18
+    with uncounted():
+        t10_k2lap = slice_fp64_spmv("lap3d-160", lap160, "merge", "K2d",
+                                    59)[1]
     R64 = plan_matrix(rmat_spd17, "auto", dtype=np.float64, device="cuda")
     check(isinstance(R64, merge_spmv.MergeDevice),
           "rmat_spd-17-ef4 AUTO float64 plans merge (K2d)")
@@ -2163,6 +2245,9 @@ def main() -> int:
         entry("K2 merge-path CSR SpMV", "merge_spmv.cu",
               "tpusparse/kernels/merge_spmv.py:672", "K2", k2_err,
               t160["K2"], "lap3d-160 spmv L=1, device time"),
+        entry("K2 merge-path CSR SpMV", "merge_spmv.cu",
+              "tpusparse/kernels/merge_spmv.py:672", "K2", k2_err,
+              t4_rmat, "rmat-18-ef16 spmv L=1, device time"),
         entry("K3 merge-path CSR SpMM", "merge_spmm.cu",
               "tpusparse/kernels/spmm_merge.py:161", "K3", k3_err,
               t6["K3"], f"lap3d-160 spmm L={L_MULTI}, device time"),
@@ -2198,6 +2283,9 @@ def main() -> int:
         entry("K2d merge-path CSR SpMV, float64", "merge_spmv.cu",
               "tpusparse/kernels/merge_df.py:287", "K2d", err64["K2d"],
               t10_k2, "rmat-18-ef16 spmv float64 L=1, device time"),
+        entry("K2d merge-path CSR SpMV, float64", "merge_spmv.cu",
+              "tpusparse/kernels/merge_df.py:287", "K2d", err64["K2d"],
+              t10_k2lap, "lap3d-160 spmv float64 L=1, device time"),
         entry("K3d merge-path CSR SpMM, float64", "merge_spmm.cu",
               "tpusparse/kernels/merge_df.py:495", "K3d", err64["K3d"],
               t11["K3d"], f"rmat-18-ef16 spmm float64 L={L_MULTI}, device "

@@ -107,6 +107,72 @@ def test_k2_matches_float64_and_repeats_bitwise(cuda, name):
     assert torch.all((y1.double() - y64).abs() <= (nnz_i + 2) * U * ax)
 
 
+K2_CASES = {
+    "hub-50000": lambda: CsrMatrix(
+        3, 50000, np.array([0, 0, 50000, 50000]), np.arange(50000),
+        np.random.default_rng(9).standard_normal(50000)),
+    "wheel-5000": CASES["wheel-5000"],
+    "bibd_9_3": CASES["bibd_9_3"],
+    "empty-rows": CASES["empty-rows"],
+    "nnz-0": CASES["nnz-0"],
+    "n-0": CASES["n-0"],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["K2", "K2d"])
+@pytest.mark.parametrize("name", list(K2_CASES))
+def test_k2_and_k2d_row_bounds_one_count_per_call(cuda, name, dtype):
+    """K2 and K2d on a row spanning many tiles (hub-50000: 49 tiles),
+    empty rows, nnz = 0 and num_rows = 0: one launch count a call, two
+    runs bitwise equal, each row within (nnz_i + 2) u (|A||x|)_i of the
+    float64 product (K2) or 2 (nnz_i + 2) u (|A||x|)_i of the plain
+    version (K2d)."""
+    M = merge_spmv.to_device_merge(K2_CASES[name](), cuda, dtype)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        M.num_cols)).to(cuda, dtype)
+    attr = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    runs = 1 if M.num_rows + M.nnz else 0
+    before = getattr(merge_spmv, attr)
+    y1 = merge_spmv.merge_matvec(M, x)
+    assert getattr(merge_spmv, attr) == before + runs
+    y2 = merge_spmv.merge_matvec(M, x)
+    assert getattr(merge_spmv, attr) == before + 2 * runs
+    assert y1.dtype == dtype and y1.shape == (M.num_rows,)
+    assert torch.equal(y1, y2)
+    args = (M.num_rows, M.row_offsets, M.col_indices)
+    ax = csr_matvec(*args, M.values.abs().double(), x.abs().double())
+    nnz_i = (M.row_offsets[1:] - M.row_offsets[:-1]).double()
+    if dtype == torch.float32:
+        y64 = csr_matvec(*args, M.values.double(), x.double())
+        assert torch.all((y1.double() - y64).abs() <= (nnz_i + 2) * U * ax)
+    else:
+        yp = merge_spmv.spmv_merge_plain(M, x)
+        assert torch.all((y1 - yp).abs() <= 2 * (nnz_i + 2) * 2.0 ** -53
+                         * ax)
+
+
+def test_k2_refuses_a_plan_without_its_tiles(cuda, monkeypatch):
+    """K2 needs the plan's tile starts, for its own tile: a plan without
+    them, with the starts of another tile size or on another device
+    raises, and so does a tile size that differs from the library's."""
+    csr = gen.make_rmat(10).to_csr()
+    M = merge_spmv.to_device_merge(csr, cuda)
+    x = _x(M.num_cols, 3, cuda)
+    merge_spmv.merge_matvec(M, x)
+    other = merge_spmv.merge_tile_coords(csr.row_offsets, csr.nnz,
+                                         2 * merge_spmv.TILE_ITEMS)
+    for coords in (None, torch.from_numpy(other).to(cuda),
+                   M.tile_coords.cpu(), M.tile_coords.long()):
+        with pytest.raises(ValueError, match="tile_coords"):
+            merge_spmv.merge_matvec(
+                dataclasses.replace(M, tile_coords=coords), x)
+    monkeypatch.setattr(merge_spmv, "TILE_ITEMS",
+                        2 * merge_spmv.TILE_ITEMS)
+    with pytest.raises(RuntimeError, match="tile"):
+        merge_spmv.merge_matvec(M, x)
+
+
 def test_cg_on_card_matches_cpu(cuda):
     csr = gen.make_laplacian_grid3d(12).to_csr()
     b = _x(csr.num_rows, 1, "cpu")

@@ -1,6 +1,8 @@
-// Merge-path partition shared by K2 (merge_spmv.cu) and K3
-// (merge_spmm.cu): the tile geometry, the merge-path search and the
-// search kernel that gives every CTA tile its start coordinate.
+// Merge-path partition: the merge-path search, shared by K2
+// (merge_spmv.cu) and K3 (merge_spmm.cu), and K3's tile geometry and the
+// search kernel that gives every K3 tile its start coordinate at each
+// call (K2 has its own geometry and takes its tile starts from the
+// plan).
 //
 // The merge path of a CSR matrix merges list A = the end offset of each
 // row with list B = the nonzero indices 0 .. nnz-1; it has num_rows +
@@ -18,7 +20,7 @@ namespace tps_merge {
 namespace {
 
 constexpr int kBlock = 128;                   // threads per consume CTA
-constexpr int kItems = 8;                     // merge items per thread (K2)
+constexpr int kItems = 8;                     // merge items per thread
 constexpr int kTileItems = kBlock * kItems;   // merge items per CTA
 constexpr int kSearchThreads = 256;
 

@@ -48,13 +48,14 @@ SIGNATURES = {
     "tps_dia_planes": (_P, _I32, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
     # the same with float64 planes and no plane_bf16 flag
     "tps_dia_planes_f64": (_P, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
-    # row_offsets, col_indices, values, x, y, tile_coords, carry_rows,
-    # carry_vals, num_rows, nnz, num_tiles, stream
+    # row_offsets, col_indices, values, x, y, tile_coords (the plan's),
+    # carry_rows, carry_vals, num_rows, nnz, num_tiles, stream
     "tps_merge_spmv": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                        _P),
     "tps_merge_spmv_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
                            _I32, _P),
     "tps_merge_tile_items": (),
+    "tps_merge_spmv_tile_items": (),
     # row_offsets, col_indices, values, X, Y, tile_coords, carry_rows,
     # carry_vals, num_rows, nnz, num_tiles, L, stream
     "tps_merge_spmm": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,

@@ -3,23 +3,27 @@
 Port of ``tpusparse/kernels/merge_spmv.py``. The TPU plan partitions the
 nonzeros into equal-nnz (8, 128) tiles on the host
 (``tpusparse/formats/tiles.py``) because the TPU kernel needs static
-shapes; on the GPU the merge-path search runs on the device at every
-call, so the plan is the CSR itself, on the device. The overflow stream
-and span classes of the TPU plan have no counterpart.
+shapes. Here the plan is the CSR itself on the device, plus the start
+of every CTA tile on the merge path (``tile_coords``): where a tile
+starts depends only on the matrix, so the plan finds it once, with a
+numpy binary search (``merge_tile_coords``), and no call searches again.
+The overflow stream and span classes of the TPU plan have no
+counterpart.
 
 K2 (``csrc/merge_spmv.cu``) replaces the Pallas kernel
-``tpusparse/kernels/merge_spmv.py::_spmv_tiles``: search, consume and
-fix-up kernels, with no float atomics, so two runs give bitwise equal y.
-K2d, the same template at IEEE float64, replaces the double-float
-(two-f32) kernel ``tpusparse/kernels/merge_df.py::_spmv_tiles_df``. A
-kernel runs in the operand's value type: ``spmv_merge`` casts x to it,
-and ``merge_matvec`` with x of another type raises TypeError.
+``tpusparse/kernels/merge_spmv.py::_spmv_tiles``: consume and fix-up
+kernels, with no float atomics, so two runs give bitwise equal y. K2d,
+the same template at IEEE float64, replaces the double-float (two-f32)
+kernel ``tpusparse/kernels/merge_df.py::_spmv_tiles_df``. A kernel runs
+in the operand's value type: ``spmv_merge`` casts x to it, and
+``merge_matvec`` with x of another type raises TypeError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from tpusparse_torch.formats.csr import VALUE_DTYPES
@@ -31,17 +35,46 @@ LAUNCHES = 0
 # K2d (float64) launches, counted apart from K2's.
 LAUNCHES_F64 = 0
 
+# Merge items per CTA tile of K2 and K2d: kThreads * kItems in
+# csrc/merge_spmv.cu, whose tps_merge_spmv_tile_items() must agree (every
+# launch checks). K3 keeps its own tiles (tps_merge_tile_items()).
+TILE_ITEMS = 1024
+_lib_tile_items: int | None = None
+
+
+def merge_tile_coords(row_offsets, nnz: int,
+                      tile: int = TILE_ITEMS) -> np.ndarray:
+    """(tiles + 1, 2) int32 (row, nonzero) at which each tile of ``tile``
+    merge items starts, tiles = ceil((num_rows + nnz) / tile); the last
+    entry is the end of the path, (num_rows, nnz).
+
+    The merge path of a CSR matrix merges the row end offsets with the
+    nonzero indices 0 .. nnz-1, a row end first where it is <= the
+    nonzero index. Row i's end is thus item row_end[i] + i of the path,
+    a strictly increasing key, and the rows consumed before diagonal d
+    are the keys < d: one binary search per tile, in int64."""
+    row_end = np.asarray(row_offsets, dtype=np.int64)[1:]
+    total = row_end.shape[0] + int(nnz)
+    tiles = -(-total // tile)
+    diag = np.minimum(np.arange(tiles + 1, dtype=np.int64) * tile, total)
+    keys = row_end + np.arange(row_end.shape[0], dtype=np.int64)
+    rows = np.searchsorted(keys, diag, side="left")
+    return np.stack([rows, diag - rows], axis=1).astype(np.int32)
+
 
 @dataclasses.dataclass
 class MergeDevice:
     """Merge-path SpMV operand: a CSR matrix on a device (int32 offsets
-    and column indices, float32 or float64 values)."""
+    and column indices, float32 or float64 values) and K2's tile starts
+    (``merge_tile_coords``, on the same device). A plan without them
+    serves the plain versions and K3; K2 refuses it."""
 
     num_rows: int
     num_cols: int
     row_offsets: torch.Tensor
     col_indices: torch.Tensor
     values: torch.Tensor
+    tile_coords: torch.Tensor | None = None
 
     @property
     def nnz(self) -> int:
@@ -50,10 +83,12 @@ class MergeDevice:
 
 def to_device_merge(csr, device, dtype=torch.float32) -> MergeDevice:
     """Merge plan of a host CsrMatrix: the CSR arrays on ``device``,
-    values in ``dtype``."""
+    values in ``dtype``, and K2's tile starts."""
     d = csr.to(device, dtype)
+    coords = merge_tile_coords(csr.row_offsets, csr.nnz)
     return MergeDevice(d.num_rows, d.num_cols, d.row_offsets,
-                       d.col_indices, d.values)
+                       d.col_indices, d.values,
+                       torch.from_numpy(coords).to(device))
 
 
 def spmv_merge_plain(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
@@ -83,16 +118,36 @@ def _check(A: MergeDevice, x: torch.Tensor) -> None:
                          "needed")
 
 
+def _tile_coords(A: MergeDevice, lib, num_tiles: int) -> torch.Tensor:
+    """The plan's tile starts, checked against the library's tile."""
+    global _lib_tile_items
+    if _lib_tile_items is None:
+        _lib_tile_items = lib.tps_merge_spmv_tile_items()
+    if _lib_tile_items != TILE_ITEMS:
+        raise RuntimeError(f"K2's tile is {_lib_tile_items} merge items in "
+                           f"the library, {TILE_ITEMS} in merge_spmv.py")
+    C = A.tile_coords
+    if C is None:
+        raise ValueError("K2 needs the plan's tile_coords: build the plan "
+                         "with to_device_merge")
+    if (C.shape != (num_tiles + 1, 2) or C.dtype != torch.int32
+            or C.device != A.values.device or not C.is_contiguous()):
+        raise ValueError(
+            f"tile_coords must be contiguous int32 ({num_tiles + 1}, 2) on "
+            f"{A.values.device} for tiles of {TILE_ITEMS} items, got "
+            f"{C.dtype} {tuple(C.shape)} on {C.device}")
+    return C
+
+
 def _launch(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
     global LAUNCHES, LAUNCHES_F64
     lib = _build.library()
-    tile = lib.tps_merge_tile_items()
-    num_tiles = -(-(A.num_rows + A.nnz) // tile)
+    num_tiles = -(-(A.num_rows + A.nnz) // TILE_ITEMS)
+    coords = _tile_coords(A, lib, num_tiles)
     dev = x.device
     y = torch.empty(A.num_rows, dtype=x.dtype, device=dev)
     if num_tiles == 0:
         return y
-    coords = torch.empty((num_tiles + 1, 2), dtype=torch.int32, device=dev)
     carry_rows = torch.empty(num_tiles, dtype=torch.int32, device=dev)
     carry_vals = torch.empty(num_tiles, dtype=x.dtype, device=dev)
     f64 = x.dtype == torch.float64
@@ -128,5 +183,5 @@ def spmv_merge(A: MergeDevice, x, alpha=1.0, beta=0.0, y=None):
     """y = alpha * A @ x + beta * y via the merge-path kernel."""
     y_new = merge_matvec(A, x.to(A.values.dtype))
     if beta == 0.0 or y is None:
-        return alpha * y_new
+        return alpha * y_new if alpha != 1.0 else y_new
     return alpha * y_new + beta * y

@@ -115,7 +115,7 @@ def scaled_product(matmat, A, X, alpha=1.0, beta=0.0, Y=None):
     if squeeze:
         Y_new = Y_new[:, 0]
     if beta == 0.0 or Y is None:
-        return alpha * Y_new
+        return alpha * Y_new if alpha != 1.0 else Y_new
     return alpha * Y_new + beta * Y
 
 
