@@ -87,7 +87,9 @@ Phases, each printed on its own lines:
       call and the bound; K4's result also against its plain version on
       the same X (ULP and normwise on the card, bitwise on CPU copies);
       each row-split plan's work-row table (work rows, split rows and
-      chunks) and build time printed;
+      chunks) and build time printed; the ``torch.profiler`` split of one
+      K3 call at lap3d-160 (exactly one consume and one fix-up launch, as
+      in [4]);
   [7] ``cg_solve_multi`` at L = 16, tol 1e-5: lap3d-160 on AUTO (K1,
       (L, n) state) with B = A X_true, rmat_spd(17, 4) on AUTO (K3) and
       gr_30_30 on ``'row_split'`` (K4); every lane must converge with a
@@ -112,11 +114,15 @@ Phases, each printed on its own lines:
       rmat_spd-17-ef4 (AUTO must plan merge: ``cg_solve`` on K2d,
       ``cg_solve_refined`` with K2 inside); every refinement must reach
       a float64 true residual < 1e-11;
- [11] float64 at L = 16: ``spmm`` on lap3d-160 AUTO (K1d on (L, n)) and
-      ``'row_split'`` (K4d), on rmat-18-ef16 ``'merge'`` (K3d) and
-      ``'row_split'`` (K4d), K4d's result also against its plain version
-      (within 2(nnz_i + 2)u|A||X| on the card, bitwise on CPU copies);
-      ``cg_solve_multi_refined`` on lap3d-160 to 1e-12 on every lane;
+ [11] float64 at L = 16: ``spmm`` on lap3d-160 AUTO (K1d on (L, n)),
+      ``'merge'`` (K3d) and ``'row_split'`` (K4d), on rmat-18-ef16
+      ``'merge'`` (K3d) and ``'row_split'`` (K4d), K4d's result also
+      against its plain version (within 2(nnz_i + 2)u|A||X| on the card,
+      bitwise on CPU copies); ``cg_solve_multi_refined`` on lap3d-160 to
+      1e-12 on every lane; outside the counts, K3d at L = 1 on the RCM
+      inner plan of fem2d-30000 as [13] (c) builds it, against its plain
+      version, timed beside it, ``torch.sparse`` and the bound, with the
+      profiler split of one call and K2d's ``spmv`` on the same plan;
   [12] the reordered path: lap3d-160 scrambled by a symmetric permutation
       from ``default_rng(5)``; ``reorder='auto'`` must plan RCM;
       ``spmv`` through the ``ReorderedPlan`` against float64, timed
@@ -141,7 +147,8 @@ Phases, each printed on its own lines:
       and its float64 true residual held to its recurrence's. Every
       kernel of the phase is held against its plain version on the
       phase's own operands: K6 on B, K3 and K3d on the inner plans, the
-      Jacobi sweeps' strict triangles and SPAI's M. These preconditioners
+      Jacobi sweeps' strict triangles and SPAI's M; (a)'s lower strict
+      triangle is timed on K3 at L = 16. These preconditioners
       declare the plan's order (``perm=A.perm``); in (b) Jacobi IC(0) of
       the matrix as given also runs in the caller's order, behind K6 (the
       JAX package's call);
@@ -1075,6 +1082,51 @@ def merge_vs_plain(phase, tag, P, X):
 K2_KERNELS = ("merge_consume_kernel", "merge_fixup_kernel")
 
 
+# the kernels one K3 or K3d call launches: no search, no elementwise pass
+K3_KERNELS = ("merge_spmm_consume_kernel", "merge_spmm_fixup_kernel")
+
+
+def fem2d_k3d_times(gen):
+    """[11] K3d at L = 1 on the RCM inner plan of ``make_fem2d(30000,
+    seed=1)`` in float64, as [13] (c) builds it, outside the launch
+    counts: Y within 2(nnz_i + 2)u|A||X| of the plain version and of the
+    float64 ``reference`` plan's product, timed beside the plain version,
+    ``torch.sparse`` and the bound; the profiler split of one call; K2d's
+    ``spmv`` on the same plan timed beside it."""
+    from tpusparse_torch import plan_matrix, spmm, spmv
+    from tpusparse_torch.bench.models import spmm_bytes, spmv_flops
+    from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
+    from tpusparse_torch.kernels import merge_spmv, spmm_merge
+
+    tag = "fem2d-30000 RCM inner plan"
+    csr = gen.make_fem2d(30000, seed=1).to_csr()
+    A = plan_matrix(csr, "auto", dtype=np.float64, reorder="auto", L=1,
+                    device="cuda")
+    P = A.inner
+    check(getattr(A, "order", None) == "rcm"
+          and isinstance(P, merge_spmv.MergeDevice),
+          f"{tag}: reorder='auto' plans RCM around a merge plan")
+    X = rand64(530, (P.num_cols, 1))
+    with uncounted():
+        merge_vs_plain(11, tag, P, X)
+        t = time_pair(lambda: spmm(P, X),
+                      lambda: spmm_merge.spmm_merge_plain(P, X))
+        lib = library_csr(P)
+        t["library"] = cuda_time_ms(lambda: lib @ X)
+        x = X[:, 0].contiguous()
+        k2d = (cuda_time_ms(lambda: spmv(P, x)),
+               graph_time_ms(lambda: spmv(P, x)))
+        launch_split(11, f"{tag} spmm float64 L=1 (K3d)",
+                     lambda: spmm(P, X), K3_KERNELS)
+    t["bound"] = report(11, f"{tag} ({P.num_rows} rows, {P.nnz} nnz) spmm "
+                        "float64 merge (K3d) L=1", t, spmv_flops(P.nnz),
+                        spmm_bytes(P.nnz, P.num_rows, P.num_cols, 1, 8),
+                        fp64=True)
+    print(f"[11] {tag} spmv float64 merge (K2d) on the same plan: "
+          f"{k2d[0]:.4f} ms/call, device {k2d[1]:.4f} ms", flush=True)
+    return t
+
+
 def k2_spmv_times(tag, csr, seed):
     """[4] ``spmv`` on the merge plan of ``csr`` (K2), outside the launch
     counts: y within (nnz_i + 2)u|A||x| of float64, timed beside the
@@ -1278,6 +1330,32 @@ FEM_MAX_ITERS = 40000    # plain CG on fem2d-30000 takes about 23,000
 EXACT_FEM_ITERS = 300
 
 
+def strict_triangle_times(tag, P, seed):
+    """[13] ``spmm`` at L_MULTI on the strict triangle ``P`` that a
+    Jacobi sweep multiplies by (K3 on its merge plan), outside the launch
+    counts: timed beside the plain version, ``torch.sparse`` and the
+    bound."""
+    from tpusparse_torch import spmm
+    from tpusparse_torch.bench.models import spmm_bytes, spmv_flops
+    from tpusparse_torch.bench.timing import cuda_time_ms
+    from tpusparse_torch.kernels import merge_spmv, spmm_merge
+
+    check(isinstance(P, merge_spmv.MergeDevice)
+          and P.values.dtype == torch.float32,
+          f"{tag}: the Jacobi strict triangle has a float32 merge plan")
+    X = rand(seed, (P.num_cols, L_MULTI))
+    with uncounted():
+        t = time_pair(lambda: spmm(P, X),
+                      lambda: spmm_merge.spmm_merge_plain(P, X))
+        lib = library_csr(P)
+        t["library"] = cuda_time_ms(lambda: lib @ X)
+    t["bound"] = report(13, f"{tag} Jacobi lower strict triangle "
+                        f"({P.num_rows} rows, {P.nnz} nnz) spmm merge (K3) "
+                        f"L={L_MULTI}", t, spmv_flops(P.nnz, L_MULTI),
+                        spmm_bytes(P.nnz, P.num_rows, P.num_cols, L_MULTI))
+    return t
+
+
 def preconditioned_phase(gen, reset_counts, read_counts):
     """[13] The ``cpu_multicg`` comparison with ``reorder='auto'`` at tol
     1e-5, each solver given the ``ReorderedPlan`` (B in and X out through
@@ -1295,8 +1373,9 @@ def preconditioned_phase(gen, reset_counts, read_counts):
         iterations, its float64 true residual held to its recurrence.
     Every kernel of the phase is held against its plain version on the
     phase's own operands (not counted): K6 on B, K3 (K3d) on the inner
-    plan, on the Jacobi sweeps' strict triangles and on SPAI's M.
-    Returns the launch counts of the phase."""
+    plan, on the Jacobi sweeps' strict triangles and on SPAI's M; (a)'s
+    lower strict triangle is timed on K3 at L = 16. Returns the launch
+    counts of the phase and that timing."""
     from tpusparse_torch import (
         cg_solve_multi,
         ic0_factorize,
@@ -1368,6 +1447,7 @@ def preconditioned_phase(gen, reset_counts, read_counts):
                              C, B)
     Lf, f_ms = factor(tag, csr_p)
     prec, p_ms = jacobi(tag, Lf, L_MULTI, np.float32, 501, A.perm)
+    t_tri = strict_triangle_times(tag, prec.fwd.strict, 502)
     out["a", "pcg"] = multicg(tag, "pcg_ic0 (2 Jacobi sweeps)", f_ms + p_ms,
                               solve(pcg_solve_multi, A, B, prec), C, B)
     del A, csr, csr_p, C, B, Lf, prec
@@ -1477,7 +1557,7 @@ def preconditioned_phase(gen, reset_counts, read_counts):
     out["c", "pcg_exact (budget)"] = (EXACT_FEM_ITERS, per, tr)
     print("[13] iterations: " + ", ".join(
         f"({k[0]}) {k[1]} {v[0]}" for k, v in out.items()))
-    return read_counts("preconditioned path", ("K6", "K3", "K3d"))
+    return read_counts("preconditioned path", ("K6", "K3", "K3d")), t_tri
 
 
 K7_LS = (2, 3, 16, 32, 100)
@@ -1950,7 +2030,7 @@ def main() -> int:
     reset_counts()
     slice_spmv(3, "lap3d-48", lap48, 30)
     A160, M160, t160 = slice_spmv(4, "lap3d-160", lap160, 31)
-    from tpusparse_torch import spmv
+    from tpusparse_torch import spmm, spmv
 
     x160 = rand(31, lap160.num_cols)
     launch_split(4, "lap3d-160 spmv merge (K2)", lambda: spmv(M160, x160),
@@ -1977,6 +2057,10 @@ def main() -> int:
         ("auto", A16, "K1", "dia"), ("merge", M16, "K3", "merge"),
         ("row_split", row_split_plan(6, "lap3d-160", lap160), "K4",
          "row_split")), 34)
+    X16 = rand(34, (lap160.num_cols, L_MULTI))
+    launch_split(6, "lap3d-160 spmm merge (K3)", lambda: spmm(M16, X16),
+                 K3_KERNELS)
+    del X16
     Mr = plan_matrix(rmat18, "auto", L=L_MULTI, device="cuda")
     t6r = slice_spmm("rmat-18-ef16", rmat18, Mr, (
         ("auto", Mr, "K3", "merge"),
@@ -2132,6 +2216,8 @@ def main() -> int:
           "L=16 plans K1d")
     t11_lap = slice_fp64_spmm("lap3d-160", lap160, C64, (
         ("auto", M64, "K1d"),
+        ("merge", plan_matrix(lap160, "merge", dtype=np.float64, L=L_MULTI,
+                              device="cuda"), "K3d"),
         ("row_split", row_split_plan(11, "lap3d-160", lap160, np.float64),
          "K4d")), 56)
     X_true = rand64(57, (lap160.num_cols, L_MULTI))
@@ -2149,6 +2235,7 @@ def main() -> int:
         ("row_split", row_split_plan(11, "rmat-18-ef16", rmat18,
                                      np.float64), "K4d")), 58)
     del Cr
+    t11_fem = fem2d_k3d_times(gen)
     path6 = read_counts("float64 multi-RHS path", ("K1d", "K3d", "K4d"))
     torch.cuda.empty_cache()
 
@@ -2207,7 +2294,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # [13] the preconditioned solvers, counted from 0 again
-    path8 = preconditioned_phase(gen, reset_counts, read_counts)
+    path8, t13 = preconditioned_phase(gen, reset_counts, read_counts)
     torch.cuda.empty_cache()
 
     # [14] the n-major path at full width, counted from 0 again
@@ -2251,6 +2338,13 @@ def main() -> int:
         entry("K3 merge-path CSR SpMM", "merge_spmm.cu",
               "tpusparse/kernels/spmm_merge.py:161", "K3", k3_err,
               t6["K3"], f"lap3d-160 spmm L={L_MULTI}, device time"),
+        entry("K3 merge-path CSR SpMM", "merge_spmm.cu",
+              "tpusparse/kernels/spmm_merge.py:161", "K3", k3_err,
+              t6r["K3"], f"rmat-18-ef16 spmm L={L_MULTI}, device time"),
+        entry("K3 merge-path CSR SpMM", "merge_spmm.cu",
+              "tpusparse/kernels/spmm_merge.py:161", "K3", k3_err, t13,
+              f"Jacobi lower strict triangle of scrambled lap3d-128 (RCM) "
+              f"spmm L={L_MULTI}, device time"),
         entry("K4 row-split CSR SpMM", "rowsplit_spmm.cu",
               "tpusparse/kernels/ell_spmm.py:132", "K4", k4_err,
               t6["K4"], f"lap3d-160 spmm L={L_MULTI}, device time"),
@@ -2290,6 +2384,14 @@ def main() -> int:
               "tpusparse/kernels/merge_df.py:495", "K3d", err64["K3d"],
               t11["K3d"], f"rmat-18-ef16 spmm float64 L={L_MULTI}, device "
               "time"),
+        entry("K3d merge-path CSR SpMM, float64", "merge_spmm.cu",
+              "tpusparse/kernels/merge_df.py:495", "K3d", err64["K3d"],
+              t11_lap["K3d"], f"lap3d-160 spmm float64 L={L_MULTI}, device "
+              "time"),
+        entry("K3d merge-path CSR SpMM, float64", "merge_spmm.cu",
+              "tpusparse/kernels/merge_df.py:495", "K3d", err64["K3d"],
+              t11_fem, "fem2d-30000 RCM inner plan spmm float64 L=1, "
+              "device time"),
         entry("K4d row-split CSR SpMM, float64", "rowsplit_spmm.cu",
               "tpusparse/kernels/ell_df.py:186", "K4d", err64["K4d"],
               t11["K4d"], f"rmat-18-ef16 spmm float64 L={L_MULTI}, device "

@@ -44,6 +44,7 @@ from tpusparse_torch.kernels import (
     spmm_merge,
 )
 from tpusparse_torch.ops.reference import csr_matmat, csr_matvec
+from test_torch_merge_spmm_tiles import K3_CASES, emulate_k3, integer_valued
 
 pytestmark = pytest.mark.cuda
 
@@ -171,6 +172,86 @@ def test_k2_refuses_a_plan_without_its_tiles(cuda, monkeypatch):
                         2 * merge_spmv.TILE_ITEMS)
     with pytest.raises(RuntimeError, match="tile"):
         merge_spmv.merge_matvec(M, x)
+
+
+K3_LS = (1, 3, 16, 32, 33, 100, 136)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["K3", "K3d"])
+@pytest.mark.parametrize("L", K3_LS)
+@pytest.mark.parametrize("name", list(K3_CASES))
+def test_k3_and_k3d_equal_their_emulation(cuda, name, L, dtype):
+    """K3 and K3d on num_rows = 0, nnz = 0, empty rows, bibd_9_3, a wheel
+    hub spanning several tiles and rmat-10 (L = 33 and 136 take two lane
+    chunks, of one and of 16-byte lanes): one launch count a call, two
+    runs bitwise equal, within 2 (nnz_i + 2) u (|A||X|)_i of the plain
+    version, and equal bit for bit to the CPU emulation of K3's
+    decomposition in the same type, on random values and on integer
+    values (where every sum is exact)."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    csr = K3_CASES[name]()
+    rng = np.random.default_rng(L)
+    rand_csr = CsrMatrix(csr.num_rows, csr.num_cols, csr.row_offsets,
+                         csr.col_indices, rng.standard_normal(csr.nnz))
+    X = rng.standard_normal((csr.num_cols, L)).astype(npdt)
+    attr = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    runs = 1 if csr.num_rows + csr.nnz else 0
+    for A, XA in ((rand_csr, X), integer_valued(csr, L, 3 + L)):
+        M = merge_spmv.to_device_merge(A, cuda, dtype)
+        Xd = torch.from_numpy(XA.astype(npdt)).to(cuda)
+        before = getattr(spmm_merge, attr)
+        Y1 = spmm_merge.merge_matmat(M, Xd)
+        assert getattr(spmm_merge, attr) == before + runs
+        Y2 = spmm_merge.merge_matmat(M, Xd)
+        assert Y1.dtype == dtype and Y1.shape == (csr.num_rows, L)
+        assert torch.equal(Y1, Y2)
+        want = emulate_k3(A, XA.astype(npdt), M.tile_coords.cpu().numpy())
+        np.testing.assert_array_equal(Y1.cpu().numpy(), want)
+        args = (M.num_rows, M.row_offsets, M.col_indices)
+        AX = csr_matmat(*args, M.values.abs().double(), Xd.abs().double())
+        nnz_i = (M.row_offsets[1:] - M.row_offsets[:-1]).double()[:, None]
+        u = U if dtype == torch.float32 else U64
+        Yp = spmm_merge.spmm_merge_plain(M, Xd)
+        assert torch.all((Y1.double() - Yp.double()).abs()
+                         <= 2 * (nnz_i + 2) * u * AX)
+    np.testing.assert_array_equal(Y1.cpu().numpy(), A.to_scipy() @ XA)
+
+
+def test_k3_refuses_a_plan_without_its_tiles(cuda, monkeypatch):
+    """K3 works on the plan's tile starts, K2's tiles: a plan without
+    them, with the starts of another tile size or on another device
+    raises, and so does a tile size that differs from the library's."""
+    csr = gen.make_rmat(10).to_csr()
+    M = merge_spmv.to_device_merge(csr, cuda)
+    X = _x(None, 3, cuda, (M.num_cols, 16))
+    spmm_merge.merge_matmat(M, X)
+    other = merge_spmv.merge_tile_coords(csr.row_offsets, csr.nnz,
+                                         2 * merge_spmv.TILE_ITEMS)
+    for coords in (None, torch.from_numpy(other).to(cuda),
+                   M.tile_coords.cpu(), M.tile_coords.long()):
+        with pytest.raises(ValueError, match="tile_coords"):
+            spmm_merge.merge_matmat(
+                dataclasses.replace(M, tile_coords=coords), X)
+    monkeypatch.setattr(merge_spmv, "TILE_ITEMS",
+                        2 * merge_spmv.TILE_ITEMS)
+    with pytest.raises(RuntimeError, match="tile"):
+        spmm_merge.merge_matmat(M, X)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["K3", "K3d"])
+def test_k3_takes_x_at_any_alignment(cuda, dtype):
+    """K3 loads 16 bytes of X lanes at once: X starting one element past
+    an aligned address gives the Y of an aligned copy, bit for bit."""
+    M = merge_spmv.to_device_merge(gen.make_rmat(10).to_csr(), cuda, dtype)
+    L = 16
+    buf = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        M.num_cols * L + 1)).to(cuda, dtype)
+    X = buf[1:].view(M.num_cols, L)
+    assert X.is_contiguous() and X.data_ptr() % 16
+    assert torch.equal(spmm_merge.merge_matmat(M, X),
+                       spmm_merge.merge_matmat(M, X.clone()))
 
 
 def test_cg_on_card_matches_cpu(cuda):

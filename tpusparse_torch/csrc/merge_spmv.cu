@@ -68,8 +68,8 @@ namespace {
 using tps_merge::Coord;
 using tps_merge::merge_path_search;
 
-// K2's geometry, its own (K3 keeps merge_path.cuh's); kernels/
-// merge_spmv.py::TILE_ITEMS mirrors kTileItems.
+// K2's geometry; kernels/merge_spmv.py::TILE_ITEMS mirrors kTileItems,
+// and K3 (merge_spmm.cu) works on the same tiles.
 constexpr int kThreads = 128;                  // threads per consume CTA
 constexpr int kItems = 8;                      // merge items per thread
 constexpr int kTileItems = kThreads * kItems;  // merge items per CTA
@@ -260,11 +260,8 @@ int run(const void* row_offsets, const void* col_indices, const void* values,
 
 }  // namespace
 
-// K3's tile (merge_path.cuh), which sizes K3's scratch (merge_spmm.cu).
-extern "C" int tps_merge_tile_items(void) { return tps_merge::kTileItems; }
-
-// K2's tile: tile_coords of a K2 call start a tile every this many merge
-// items.
+// K2's tile: tile_coords of a K2 or K3 call start a tile every this many
+// merge items.
 extern "C" int tps_merge_spmv_tile_items(void) { return kTileItems; }
 
 // y (num_rows,) = A @ x for CSR (row_offsets, col_indices, values),

@@ -54,14 +54,13 @@ SIGNATURES = {
                        _P),
     "tps_merge_spmv_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
                            _I32, _P),
-    "tps_merge_tile_items": (),
     "tps_merge_spmv_tile_items": (),
-    # row_offsets, col_indices, values, X, Y, tile_coords, carry_rows,
-    # carry_vals, num_rows, nnz, num_tiles, L, stream
-    "tps_merge_spmm": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
-                       _I32, _P),
-    "tps_merge_spmm_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
-                           _I32, _I32, _P),
+    # row_offsets, col_indices, values, X, Y, tile_coords (the plan's, on
+    # K2's tiles), carry_vals, num_rows, nnz, num_tiles, L, stream
+    "tps_merge_spmm": (*(_P,) * 7, _I32, _I32, _I32, _I32, _P),
+    "tps_merge_spmm_f64": (*(_P,) * 7, _I32, _I32, _I32, _I32, _P),
+    # L, value bytes -> merge items of a K3 lane group's stretch
+    "tps_merge_spmm_group_items": (_I32, _I32),
     # work_offsets, work_dest, col_indices, values, X, Y, partials,
     # split_rows, split_offsets, num_work, num_split, L, stream
     "tps_rowsplit_spmm": (*(_P,) * 9, *(_I32,) * 3, _P),

@@ -6,7 +6,9 @@ nonzeros into equal-nnz (8, 128) tiles on the host
 shapes. Here the plan is the CSR itself on the device, plus the start
 of every CTA tile on the merge path (``tile_coords``): where a tile
 starts depends only on the matrix, so the plan finds it once, with a
-numpy binary search (``merge_tile_coords``), and no call searches again.
+numpy binary search (``merge_tile_coords``), and no call of K2 or of the
+merge SpMM K3 (``spmm_merge.py``), which works on the same tiles,
+searches again.
 The overflow stream and span classes of the TPU plan have no
 counterpart.
 
@@ -35,9 +37,9 @@ LAUNCHES = 0
 # K2d (float64) launches, counted apart from K2's.
 LAUNCHES_F64 = 0
 
-# Merge items per CTA tile of K2 and K2d: kThreads * kItems in
-# csrc/merge_spmv.cu, whose tps_merge_spmv_tile_items() must agree (every
-# launch checks). K3 keeps its own tiles (tps_merge_tile_items()).
+# Merge items per CTA tile of K2 and K2d (kThreads * kItems in
+# csrc/merge_spmv.cu, whose tps_merge_spmv_tile_items() must agree: every
+# launch checks) and of K3 and K3d, which work on the same tiles.
 TILE_ITEMS = 1024
 _lib_tile_items: int | None = None
 
@@ -64,10 +66,11 @@ def merge_tile_coords(row_offsets, nnz: int,
 
 @dataclasses.dataclass
 class MergeDevice:
-    """Merge-path SpMV operand: a CSR matrix on a device (int32 offsets
-    and column indices, float32 or float64 values) and K2's tile starts
-    (``merge_tile_coords``, on the same device). A plan without them
-    serves the plain versions and K3; K2 refuses it."""
+    """Merge-path SpMV and SpMM operand: a CSR matrix on a device (int32
+    offsets and column indices, float32 or float64 values) and the start
+    of every tile of ``TILE_ITEMS`` merge items (``merge_tile_coords``,
+    on the same device), which K2 and K3 read. A plan without them serves
+    the plain versions only: K2 and K3 refuse it."""
 
     num_rows: int
     num_cols: int
@@ -118,8 +121,10 @@ def _check(A: MergeDevice, x: torch.Tensor) -> None:
                          "needed")
 
 
-def _tile_coords(A: MergeDevice, lib, num_tiles: int) -> torch.Tensor:
-    """The plan's tile starts, checked against the library's tile."""
+def plan_tile_coords(A: MergeDevice, lib, num_tiles: int,
+                     kernel: str = "K2") -> torch.Tensor:
+    """The plan's tile starts, checked against the library's tile, for a
+    launch of K2 or K3 (``kernel``) over ``num_tiles`` tiles."""
     global _lib_tile_items
     if _lib_tile_items is None:
         _lib_tile_items = lib.tps_merge_spmv_tile_items()
@@ -128,8 +133,8 @@ def _tile_coords(A: MergeDevice, lib, num_tiles: int) -> torch.Tensor:
                            f"the library, {TILE_ITEMS} in merge_spmv.py")
     C = A.tile_coords
     if C is None:
-        raise ValueError("K2 needs the plan's tile_coords: build the plan "
-                         "with to_device_merge")
+        raise ValueError(f"{kernel} needs the plan's tile_coords: build "
+                         "the plan with to_device_merge")
     if (C.shape != (num_tiles + 1, 2) or C.dtype != torch.int32
             or C.device != A.values.device or not C.is_contiguous()):
         raise ValueError(
@@ -143,7 +148,7 @@ def _launch(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
     global LAUNCHES, LAUNCHES_F64
     lib = _build.library()
     num_tiles = -(-(A.num_rows + A.nnz) // TILE_ITEMS)
-    coords = _tile_coords(A, lib, num_tiles)
+    coords = plan_tile_coords(A, lib, num_tiles)
     dev = x.device
     y = torch.empty(A.num_rows, dtype=x.dtype, device=dev)
     if num_tiles == 0:

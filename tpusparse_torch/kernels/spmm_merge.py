@@ -1,20 +1,29 @@
 """Merge-path CSR SpMM — kernel K3 and its float64 twin K3d.
 
 Port of ``tpusparse/kernels/spmm_merge.py``. The operand is K2's merge
-plan (``merge_spmv.MergeDevice``, the CSR on the device): one plan
-serves SpMV (K2) and SpMM (K3), as the JAX package's merge tiles serve
-both of its kernels.
+plan (``merge_spmv.MergeDevice``, the CSR on the device and the start of
+every tile on the merge path): one plan serves SpMV (K2) and SpMM (K3),
+as the JAX package's merge tiles serve both of its kernels.
 
 K3 (``csrc/merge_spmm.cu``) replaces the Pallas kernel
-``tpusparse/kernels/spmm_merge.py::_spmm_tiles``: K2's search, consume
-and fix-up with the RHS lanes inside each CTA, so the matrix payload
-streams once for all L lanes, and no float atomics, so two runs give
-bitwise equal Y. The TPU wrapper's lane padding to multiples of 8, its
-VMEM lane chunks and its overflow COO stream have no counterpart. K3d,
-the same template at IEEE float64, replaces the double-float (two-f32)
-kernel ``tpusparse/kernels/merge_df.py::_spmm_tiles_df``. A kernel runs
-in the operand's value type: ``scaled_product`` casts X to it, and a
+``tpusparse/kernels/spmm_merge.py::_spmm_tiles``: a consume kernel with
+the RHS lanes inside each CTA, so the matrix payload streams once for
+all L lanes, on the plan's tiles (K2's), and a fix-up kernel; a call
+launches these two and searches nothing. A thread takes 16 bytes of
+lanes (four float32, two float64) where they divide L. No float
+atomics, so two runs give bitwise equal Y. The TPU wrapper's lane
+padding to multiples of 8, its VMEM lane chunks and its overflow COO
+stream have no counterpart. K3d, the same template at IEEE float64,
+replaces the double-float (two-f32) kernel
+``tpusparse/kernels/merge_df.py::_spmm_tiles_df``. A kernel runs in the
+operand's value type: ``scaled_product`` casts X to it, and a
 kernel-level call with X of another type raises TypeError.
+
+The order of a lane's additions follows K3's geometry: a CTA of
+``BLOCK_THREADS`` threads walks a tile in groups, each group one
+stretch of ``group_items(L, itemsize)`` merge items (``group_items``
+mirrors the library's ``tps_merge_spmm_group_items``, and every launch
+checks that the two agree).
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from tpusparse_torch.formats.csr import VALUE_DTYPES
-from tpusparse_torch.kernels import _build
+from tpusparse_torch.kernels import _build, merge_spmv
 from tpusparse_torch.kernels.merge_spmv import MergeDevice
 from tpusparse_torch.ops.reference import csr_matmat
 
@@ -30,6 +39,36 @@ from tpusparse_torch.ops.reference import csr_matmat
 LAUNCHES = 0
 # K3d (float64) launches, counted apart from K3's.
 LAUNCHES_F64 = 0
+
+# K3's geometry, mirrored from csrc/merge_spmm.cu: threads per consume
+# CTA (kBlock), threads per lane group, at most (kMaxGroup), and the bytes
+# of RHS lanes a thread takes where they divide L (kLaneBytes).
+BLOCK_THREADS = 128
+MAX_GROUP = 32
+LANE_BYTES = 16
+# (L, value bytes) -> the library's group_items, checked once each
+_lib_group_items: dict = {}
+
+
+def lanes_per_thread(L: int, itemsize: int) -> int:
+    """RHS lanes a thread of K3 takes: LANE_BYTES of them (4 in
+    float32, 2 in float64) where they divide L, else one."""
+    wide = LANE_BYTES // itemsize
+    return wide if L % wide == 0 else 1
+
+
+def group_items(L: int, itemsize: int) -> int:
+    """Merge items of each lane group's stretch of a tile at L
+    right-hand sides of ``itemsize`` bytes: the CTA's threads form groups
+    of W threads (W the next power of two >= L / lanes_per_thread, at
+    most MAX_GROUP), and each group walks TILE_ITEMS / (BLOCK_THREADS /
+    W) consecutive items of the tile. The stretches fix the order of
+    every lane's additions."""
+    lanes = -(-L // lanes_per_thread(L, itemsize))
+    w = 1
+    while w < lanes and w < MAX_GROUP:
+        w *= 2
+    return merge_spmv.TILE_ITEMS // (BLOCK_THREADS // w)
 
 
 def spmm_merge_plain(A: MergeDevice, X: torch.Tensor) -> torch.Tensor:
@@ -64,18 +103,31 @@ def check_operands(A, X: torch.Tensor, kernel: str) -> None:
                          "needed")
 
 
+def _check_geometry(lib, L: int, itemsize: int) -> None:
+    key = (L, itemsize)
+    if key not in _lib_group_items:
+        _lib_group_items[key] = lib.tps_merge_spmm_group_items(L, itemsize)
+    want = group_items(L, itemsize)
+    if _lib_group_items[key] != want:
+        raise RuntimeError(
+            f"K3's group stretch at L = {L} is {_lib_group_items[key]} merge "
+            f"items in the library, {want} in spmm_merge.py")
+
+
 def _launch(A: MergeDevice, X: torch.Tensor) -> torch.Tensor:
     global LAUNCHES, LAUNCHES_F64
     lib = _build.library()
     L = X.shape[1]
-    num_tiles = -(-(A.num_rows + A.nnz) // lib.tps_merge_tile_items())
+    num_tiles = -(-(A.num_rows + A.nnz) // merge_spmv.TILE_ITEMS)
+    coords = merge_spmv.plan_tile_coords(A, lib, num_tiles, "K3")
+    _check_geometry(lib, L, X.element_size())
     dev = X.device
     Y = torch.empty((A.num_rows, L), dtype=X.dtype, device=dev)
     if num_tiles == 0:
         return Y
-    coords = torch.empty((num_tiles + 1, 2), dtype=torch.int32, device=dev)
-    carry_rows = torch.empty(num_tiles, dtype=torch.int32, device=dev)
     carry_vals = torch.empty((num_tiles, L), dtype=X.dtype, device=dev)
+    if X.data_ptr() % LANE_BYTES:
+        X = X.clone()  # wide lanes load X in aligned LANE_BYTES words
     f64 = X.dtype == torch.float64
     name = "tps_merge_spmm_f64" if f64 else "tps_merge_spmm"
     with torch.cuda.device(dev):
@@ -83,8 +135,8 @@ def _launch(A: MergeDevice, X: torch.Tensor) -> torch.Tensor:
         rc = getattr(lib, name)(
             A.row_offsets.data_ptr(), A.col_indices.data_ptr(),
             A.values.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            coords.data_ptr(), carry_rows.data_ptr(), carry_vals.data_ptr(),
-            A.num_rows, A.nnz, num_tiles, L, stream)
+            coords.data_ptr(), carry_vals.data_ptr(), A.num_rows, A.nnz,
+            num_tiles, L, stream)
     _build.check(rc, name)
     if f64:
         LAUNCHES_F64 += 1
