@@ -41,7 +41,13 @@ Phases, each printed on its own lines:
   [1] the card (``nvidia-smi`` name and power limit) and the kernels'
       build from ``tpusparse_torch/csrc``;
   [2] every kernel against its plain PyTorch version on the card, under
-      the stated error bounds (u = 2^-24): K1 at L = 1, 4 and 16; K2,
+      the stated error bounds (u = 2^-24): K1 at L = 1, 4 and 16 on
+      lap3d-48, bitwise equal to its plain version; K1 and K1d bitwise
+      equal to theirs on lap2d-2049 (4,198,401 rows, odd n) at L = 1
+      and 16, and at L = 0, 1, 3, 16 and 33 on K1's edge cases (lap2d's
+      offsets at odd n, a 32-plane band with bit 31, 32 spaced planes,
+      offsets past n, K = 0, n below a row block, n = 0), on XT aligned
+      to 16 bytes and one element off; K2,
       and K3 and K4 at L = 1, 3, 16 and 32, on lap3d-48, rmat-18-ef16,
       wheel-100000, ``data/real/*.mtx``, an empty-rows and an nnz = 0
       CSR; two runs of K2, K3 and K4 must be bitwise equal, and K4 equal
@@ -234,10 +240,81 @@ def k1_vs_plain(name, D, L, seed):
     err = (Y - Yp).abs()
     bound = 2 * len(D.offsets) * U * AX
     check((err.double() <= bound).all(), f"K1 {name} L={L} error bound")
-    print(f"[2] K1 {name} L={L}: max|K1-plain| {float(err.max()):.3e} "
-          f"(bound 2Ku|A||x| max {float(bound.max()):.3e}), bitwise equal "
-          f"{bool(torch.equal(Y, Yp))}")
+    check(torch.equal(Y, Yp), f"K1 {name} L={L}: bitwise equal to plain")
+    print(f"[2] K1 {name} L={L}: bitwise equal to plain (bound 2Ku|A||x| "
+          f"max {float(bound.max()):.3e})")
     return float(err.max())
+
+
+def k1_bitwise(what, D, L, seed, shift=0):
+    """K1 (a float32 operand) or K1d (float64) on XT (L, n), a view
+    ``shift`` elements into its buffer: bitwise equal to its plain
+    version. Returns max |kernel - plain| (0)."""
+    from tpusparse_torch.kernels import dia_stream
+
+    n = D.num_cols
+    buf = torch.empty(L * n + shift, dtype=D.vals.dtype, device="cuda")
+    XT = buf[shift:].view(L, n)
+    XT.copy_(torch.from_numpy(
+        np.random.default_rng(seed).standard_normal((L, n))))
+    Y = dia_stream.spmm_dia_stream_t(D, XT)
+    Yp = dia_stream.spmm_dia_masked_plain(D, XT)
+    what = f"{what} L={L}" + (f", XT {shift} element off 16 B" if shift
+                              else "")
+    check(Y.shape == (L, D.num_rows) and torch.isfinite(Y).all(),
+          f"{what}: finite Y of shape ({L}, {D.num_rows})")
+    check(torch.equal(Y, Yp), f"{what}: bitwise equal to plain")
+    return float((Y - Yp).abs().max()) if Y.numel() else 0.0
+
+
+# K1's edge cases: (name, n, offsets), with seeded coefficients and mask
+# words (bit 31 set on about half the rows)
+K1_EDGE = (("lap2d-2049 offsets, n = 5001", 5001, (-2049, -1, 0, 1, 2049)),
+           ("32-plane band", 3000, tuple(range(-16, 16))),
+           ("32 spaced planes", 30000,
+            tuple(1500 * k - 24000 for k in range(32))),
+           ("offsets past n", 700, (-701, -5, 0, 3, 700, 900)),
+           ("K = 0", 1500, ()),
+           ("n = 300", 300, (-17, -1, 0, 1, 17)),
+           ("n = 0", 0, (-1, 0, 1)))
+
+
+def k1_checks(gen, plan_matrix):
+    """[2] K1 and K1d bitwise against their plain versions on lap2d-2049
+    at L = 1 and 16 and on ``K1_EDGE`` at L = 0, 1, 3, 16 and 33, XT
+    aligned and one element off. Returns {"K1": err, "K1d": err}."""
+    from tpusparse_torch.kernels import dia_stream
+
+    lap2049 = gen.make_laplacian_grid2d(2049).to_csr()
+    err = {"K1": 0.0, "K1d": 0.0}
+    for kernel, dtype in (("K1", np.float32), ("K1d", np.float64)):
+        D = plan_matrix(lap2049, "auto", dtype=dtype, device="cuda").dia
+        check(isinstance(D, dia_stream.DiaStreamDevice),
+              f"lap2d-2049 {kernel}: AUTO plans the masked kernel")
+        for L in (1, 16):
+            for shift in (0, 1):
+                err[kernel] = max(err[kernel], k1_bitwise(
+                    f"{kernel} lap2d-2049", D, L, 300 + L, shift))
+        print(f"[2] {kernel} lap2d-2049 ({D.num_rows} rows, offsets "
+              f"{D.offsets}) L=1, 16: bitwise equal to plain, XT aligned "
+              "and one element off", flush=True)
+        del D
+        for i, (name, n, offsets) in enumerate(K1_EDGE):
+            rng = np.random.default_rng(320 + i)
+            words = rng.integers(0, 2 ** 32, n, dtype=np.uint64)
+            D = dia_stream.from_mask_words(
+                n, n, offsets, rng.standard_normal(len(offsets)),
+                words.astype(np.uint32), "cuda", dtype)
+            for L in (0, 1, 3, 16, 33):
+                for shift in (0, 1):
+                    err[kernel] = max(err[kernel], k1_bitwise(
+                        f"{kernel} {name}", D, L, 340 + L, shift))
+        print(f"[2] {kernel} on {len(K1_EDGE)} edge cases ("
+              f"{', '.join(c[0] for c in K1_EDGE)}), L = 0, 1, 3, 16, 33: "
+              "bitwise equal to plain, XT aligned and one element off",
+              flush=True)
+    torch.cuda.synchronize()
+    return err
 
 
 def dia_planes_of(csr, plane_dtype=torch.float32):
@@ -1948,6 +2025,8 @@ def main() -> int:
     lap48 = gen.make_laplacian_grid3d(48).to_csr()
     D48 = plan_matrix(lap48, "auto", device="cuda").dia
     k1_err = max(k1_vs_plain("lap3d-48", D48, L, 10 + L) for L in (1, 4, 16))
+    k1_more = k1_checks(gen, plan_matrix)
+    k1_err = max(k1_err, k1_more["K1"])
     fixtures = [("lap3d-48", lap48),
                 ("rmat-18-ef16", gen.make_rmat(18, edge_factor=16).to_csr()),
                 ("wheel-100000", gen.make_wheel(100000).to_csr())]
@@ -1973,8 +2052,9 @@ def main() -> int:
         for pd in (torch.float32, torch.bfloat16) for L in (1, 4, 16))
     # the float64 twins on the same fixtures
     D48d = plan_matrix(lap48, "auto", dtype=np.float64, device="cuda").dia
-    err64 = {"K1d": max(kd_dia_vs_plain("K1d", "lap3d-48", D48d, L, 90 + L)
-                        for L in F64_LS)}
+    err64 = {"K1d": max(k1_more["K1d"], *(
+        kd_dia_vs_plain("K1d", "lap3d-48", D48d, L, 90 + L)
+        for L in F64_LS))}
     for kernel, seed in (("K2d", 100), ("K3d", 120), ("K4d", 140)):
         err64[kernel] = max(
             kd_csr_vs_plain(kernel, name, csr, seed + i,

@@ -118,12 +118,13 @@ def _load(path: Path):
             for name in MATRICES}
 
 
-def _ptxas() -> str:
+def _ptxas(source: str = "merge_spmm.cu") -> str:
+    """``nvcc -Xptxas -v`` of the tree's ``csrc/<source>``."""
     import tpusparse_torch
     from tpusparse_torch.kernels import _build
 
-    src = Path(tpusparse_torch.__file__).parent / "csrc" / "merge_spmm.cu"
-    out = Path(os.environ.get("TMPDIR", "/tmp")) / "k3_ptxas.o"
+    src = Path(tpusparse_torch.__file__).parent / "csrc" / source
+    out = Path(os.environ.get("TMPDIR", "/tmp")) / f"{src.stem}_ptxas.o"
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                         "-c", "-o", str(out), str(src)],
                        capture_output=True, text=True)
@@ -193,11 +194,13 @@ def run_tree(fixtures: Path, ptxas: bool) -> dict:
 
 
 def ab(trees: dict, order: list, out_path: Path, fixtures: Path,
-       ptxas: bool) -> None:
-    """Build every tree, then run them in ``order`` on one card; the
+       ptxas: bool, script: Path | None = None, summarize=None) -> None:
+    """Build every tree, then run them in ``order`` on one card, each
+    run ``script`` (this one by default) in its own process; the
     geometric means over the cells compare each tree with the first and
-    the second of ``order``."""
-    script = Path(__file__).resolve()
+    the second of ``order`` (``summarize``, this script's by default)."""
+    script = script or Path(__file__).resolve()
+    summarize = summarize or _summarize
     out_path.parent.mkdir(parents=True, exist_ok=True)
     fixtures.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -221,6 +224,12 @@ def ab(trees: dict, order: list, out_path: Path, fixtures: Path,
         if r.returncode:
             raise SystemExit(f"tree {name} failed")
         runs.append((name, json.loads(r.stdout.strip().splitlines()[-1])))
+    summary = summarize(trees, order, runs, built)
+    out_path.write_text(json.dumps({"summary": summary, "runs": runs}))
+    print(json.dumps(summary))
+
+
+def _summarize(trees: dict, order: list, runs: list, built: dict) -> dict:
     summary = {"card": runs[0][1]["card"], "order": order, "built": built,
                "cells": {}}
     for key in map(_cell_key, CELLS):
@@ -246,8 +255,7 @@ def ab(trees: dict, order: list, out_path: Path, fixtures: Path,
             np.log(c[n]["median"] / c[ref]["median"])
             for c in summary["cells"].values()]))) for n in trees}
         for ref in dict.fromkeys(order[:2])}
-    out_path.write_text(json.dumps({"summary": summary, "runs": runs}))
-    print(json.dumps(summary))
+    return summary
 
 
 def main() -> None:

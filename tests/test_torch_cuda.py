@@ -44,6 +44,7 @@ from tpusparse_torch.kernels import (
     spmm_merge,
 )
 from tpusparse_torch.ops.reference import csr_matmat, csr_matvec
+from test_torch_dia_masked_tiles import K1_CASES, emulate_k1
 from test_torch_merge_spmm_tiles import K3_CASES, emulate_k3, integer_valued
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +79,46 @@ def test_k1_matches_plain(cuda, L):
                                       D.mask.cpu().numpy(), cuda)
     AX = dia_stream.spmm_dia_masked_plain(absD, XT.abs().double())
     assert torch.all((Y - Yp).abs().double() <= 2 * len(D.offsets) * U * AX)
+    assert torch.equal(Y, Yp)
+
+
+def _on(D, dev):
+    """A CPU masked operand on ``dev``, its offset groups kept."""
+    return dataclasses.replace(D, vals=D.vals.to(dev), mask=D.mask.to(dev))
+
+
+def _k1_operands(name, dtype, L, dev, shift=0):
+    """(D on dev, XT on dev, XT's storage offset modulo a copy): XT is
+    a contiguous view ``shift`` elements into a fresh buffer."""
+    D = _on(K1_CASES[name](dtype), dev)
+    x = np.random.default_rng(40 + L).standard_normal((L, D.num_cols))
+    buf = torch.zeros(L * D.num_cols + shift, dtype=dtype, device=dev)
+    XT = buf[shift:].view(L, D.num_cols)
+    XT.copy_(torch.from_numpy(x))
+    _, _, V = dia_stream.k1_geometry(XT.element_size())
+    return D, XT, (XT.data_ptr() // XT.element_size()) % V
+
+
+@pytest.mark.parametrize("L", [0, 1, 3, 16, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(K1_CASES))
+def test_k1_bitwise_on_edge_cases(cuda, name, dtype, L):
+    """K1 (K1d) equals its plain version and ``emulate_k1`` bit for bit
+    on lap3d, lap2d's offsets at odd n, a 32-plane band with bit 31, 32
+    spaced planes, offsets past n, K = 0, n below a row block and n = 0;
+    also on an XT view whose storage starts one element past a 16-byte
+    boundary."""
+    counter = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    for shift in (0, 1):
+        D, XT, base = _k1_operands(name, dtype, L, cuda, shift)
+        before = getattr(dia_stream, counter)
+        Y = dia_stream.spmm_dia_stream_t(D, XT)
+        torch.cuda.synchronize()
+        assert getattr(dia_stream, counter) == before + 1
+        assert Y.dtype == dtype and Y.shape == (L, D.num_rows)
+        assert torch.equal(Y, dia_stream.spmm_dia_masked_plain(D, XT))
+        np.testing.assert_array_equal(
+            Y.cpu().numpy(), emulate_k1(D, XT.cpu().numpy(), base))
 
 
 CASES = {

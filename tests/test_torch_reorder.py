@@ -15,6 +15,8 @@ the JAX package's own tests run it.
   * CG on a reordered plan: the JAX package's iterations +-1.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from tpusparse.ops.spmv import plan_matrix as jplan
 from tpusparse.ops.spmv import spmm as jspmm
 from tpusparse.ops.spmv import spmv as jspmv
 from tpusparse.solvers.cg import cg_solve as jcg_solve
+from tpusparse.utils import native as jnative
 from tpusparse_torch import (
     CsrMatrix,
     ReorderedPlan,
@@ -82,7 +85,8 @@ FIXTURES = {
 }
 # where the JAX package's 'auto' reorders through its secondary
 # candidates, ranked by the TPU merge-tile score (not ported): it picks
-# the degree order there, the port keeps the native order
+# the degree order there when its native library scores them, the port
+# keeps the native order
 AUTO_DIVERGES = {"rmat-14-ef4", "rmat-16-ef4"}
 
 
@@ -228,6 +232,27 @@ def test_reordered_float64_plan():
                      <= bound[:, 0])
 
 
+def _jax_primary_gate_fires(j) -> bool:
+    """The JAX package's primary 'auto' gate, from its public pieces:
+    RCM's permuted bandwidth plus ``RCM_SLACK`` is at most ``RCM_GAIN``
+    of the original's."""
+    inv = np.argsort(jreorder.rcm_order(j))
+    ro = np.asarray(j.row_offsets)
+    ci = np.asarray(j.col_indices).astype(np.int64)
+    rows = np.repeat(np.arange(j.num_rows, dtype=np.int64), np.diff(ro))
+    d_orig = int(np.abs(rows - ci).max())
+    d_perm = int(np.abs(inv[rows] - inv[ci]).max())
+    return d_perm + jreorder.RCM_SLACK <= jreorder.RCM_GAIN * d_orig
+
+
+def _jax_scores_natively() -> bool:
+    """Whether the JAX package's scored 'auto' candidates run on its
+    native library in this process; without it they fall back to a
+    two-candidate numpy grid whose verdict differs."""
+    return (os.environ.get("TPUSPARSE_NO_NATIVE") != "1"
+            and jnative.available())
+
+
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_auto_agrees_with_jax_on_the_primary_gate(name):
     j = FIXTURES[name]()
@@ -237,11 +262,19 @@ def test_auto_agrees_with_jax_on_the_primary_gate(name):
     port = A.order if isinstance(A, ReorderedPlan) else None
     jax_ = JA.order if isinstance(JA, jreorder.ReorderedPlan) else None
     if name in AUTO_DIVERGES:
-        # JAX's secondary path fired: its degree prefilter holds, and
-        # the port's primary gate did not fire
-        assert jax_ == "degree" and port is None
-        assert reorder._degree_concentration(c) >= reorder.DEGREE_TOP_FRAC
-        assert not reorder._dia_eligible(c)
+        # the port keeps only the primary gate, and it does not fire
+        # here; JAX's degree prefilter holds, with the port's pieces
+        # equal to JAX's
+        assert not _jax_primary_gate_fires(j)
+        conc = jreorder._degree_concentration(j)
+        assert conc >= jreorder.DEGREE_TOP_FRAC
+        assert not jreorder._dia_eligible(j)
+        assert reorder._degree_concentration(c) == conc
+        assert reorder._dia_eligible(c) == jreorder._dia_eligible(j)
+        assert port is None
+        if _jax_scores_natively():
+            # JAX's scored choice, on its native candidate grid
+            assert jax_ == "degree"
     else:
         assert port == jax_
 

@@ -15,24 +15,34 @@
 // The mask word is uint32: bit 31 is legal (up to 32 planes); the JAX
 // package views the same words as int32.
 //
-// Bound: bytes. At L = 1 a row moves 12 B in float32 (mask word 4, x
-// about 4 since the K shifted reads of x hit L1/L2 after the first, y 4)
-// and 20 B in float64 (4 + 8 + 8), for 2K flops, far below the card's
-// flop-per-byte balance in either type. The design streams the three
-// arrays once with coalesced accesses — one thread per row, neighbouring
-// threads on neighbouring rows — and keeps the K offsets and
-// coefficients in kernel parameters (by value, constant bank; 388 B of
-// parameters in float64), so the only per-row operand traffic is the
-// mask word. The TPU kernel's edge-halo staging of x is not needed: the
-// cache serves the K shifted reads. Faster forms (vector loads, x tiles
-// in shared memory) are later work.
+// Bound: bytes. At L = 1 a row moves 12 B in float32 (mask word 4, x 4,
+// y 4) and 20 B in float64 (4 + 8 + 8); each further lane adds the x and
+// y bytes only, since the mask is read once for all lanes. 2K flops a
+// row and lane is far below the card's flop-per-byte balance in either
+// type. The design:
 //
-// Semantics kept from the TPU kernel: the load of x[i + off] is guarded,
-// so an out-of-range neighbour reads 0 (the TPU kernel's zero halo);
-// in-range loads are multiplied even when the coefficient is 0, as the
-// TPU kernel's 0 * w is; products and sums round separately (no FMA
-// contraction, rn_arith.cuh), as the TPU kernel's select-multiply-add
-// does. K1 and K1d therefore equal their plain versions bit for bit.
+//  1. A CTA owns a block of kThreads * R consecutive rows, a thread R of
+//     them (R = kRowBytes / sizeof(T): 8 in float32, 4 in float64), and
+//     the CTA walks all L lanes itself. The thread's R mask words stay in
+//     registers for every lane, and each lane's R outputs leave in
+//     16-byte stores.
+//  2. A plane's R values of x come in 16-byte loads: from the address of
+//     x[i0 + off] rounded down to 16 B, R / V + 1 vectors (R / V where
+//     the address is aligned), shifted into place (V values a vector).
+//     The shift is the same for every thread of a lane and plane, so the
+//     branch on it is uniform. Only a run that reaches past 0 or n takes
+//     guarded element loads. A row block's K shifted reads of x hit L1
+//     after the first.
+// The A/B on the card (scripts/torch_k1_ab.py, PERF.md §6) kept these two
+// steps and dropped windows of x in shared memory (cp.async, two
+// stages): the kernel was slower with them than with these loads.
+//
+// Semantics kept from the TPU kernel: x[i + off] outside [0, n) reads 0
+// (the TPU kernel's zero halo); in-range values are multiplied even when
+// the coefficient is 0, as the TPU kernel's 0 * w is; products and sums
+// round separately (no FMA contraction, rn_arith.cuh), in offset order,
+// as the TPU kernel's select-multiply-add does. K1 and K1d therefore
+// equal their plain versions bit for bit.
 
 #include <cstdint>
 
@@ -44,7 +54,47 @@ namespace {
 
 constexpr int kMaxPlanes = 32;
 constexpr int kThreads = 256;
-constexpr int kMaxGridY = 65535;
+// bytes of a vector load, and of a thread's run of rows
+constexpr int kVectorBytes = 16;
+constexpr int kRowBytes = 32;
+
+template <typename T>
+__host__ __device__ constexpr int rows_per_thread() {
+  return kRowBytes / static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+__host__ __device__ constexpr int vector_elems() {
+  return kVectorBytes / static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+};
+template <>
+struct Vec<double> {
+  using type = double2;
+};
+
+__device__ __forceinline__ void unpack(float4 v, float* b) {
+  b[0] = v.x;
+  b[1] = v.y;
+  b[2] = v.z;
+  b[3] = v.w;
+}
+__device__ __forceinline__ void unpack(double2 v, double* b) {
+  b[0] = v.x;
+  b[1] = v.y;
+}
+__device__ __forceinline__ float4 pack(const float* b) {
+  return make_float4(b[0], b[1], b[2], b[3]);
+}
+__device__ __forceinline__ double2 pack(const double* b) {
+  return make_double2(b[0], b[1]);
+}
 
 template <typename T>
 struct DiaParams {
@@ -53,31 +103,132 @@ struct DiaParams {
   int K;
 };
 
+// Elements by which xl + i lies past a kVectorBytes boundary (i may be
+// negative: the address arithmetic wraps, the remainder does not).
+template <typename T>
+__device__ __forceinline__ int misalign(const T* xl, long long i) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(xl) +
+                      static_cast<uintptr_t>(i) * sizeof(T);
+  return static_cast<int>((a & (kVectorBytes - 1)) / sizeof(T));
+}
+
+// x[c + j] for j < R, 0 outside [0, n): 16-byte loads from xl + c - s
+// (s = c's misalignment) where the run lies inside [0, n), else guarded
+// element loads.
+template <typename T, int R>
+__device__ __forceinline__ void row_values(const T* __restrict__ xl,
+                                           long long n, long long c,
+                                           T (&x)[R]) {
+  constexpr int V = vector_elems<T>();
+  if constexpr (R % V == 0) {
+    const int s = misalign(xl, c);
+    if (c - s >= 0 && c - s + R + V <= n) {
+      using VT = typename Vec<T>::type;
+      constexpr int C = R / V;
+      const VT* xv = reinterpret_cast<const VT*>(xl + (c - s));
+      T buf[(C + 1) * V];
+#pragma unroll
+      for (int q = 0; q < C; ++q) unpack(__ldg(xv + q), buf + q * V);
+      if (s == 0) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) x[j] = buf[j];
+        return;
+      }
+      unpack(__ldg(xv + C), buf + C * V);
+#pragma unroll
+      for (int t = 1; t < V; ++t) {
+        if (s == t) {
+#pragma unroll
+          for (int j = 0; j < R; ++j) x[j] = buf[j + t];
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    x[j] = (c + j >= 0 && c + j < n) ? __ldg(xl + c + j) : T(0);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void load_mask(const uint32_t* __restrict__ mask,
+                                          long long n, long long i0,
+                                          uint32_t (&w)[R]) {
+  if constexpr (R % 4 == 0) {
+    if (i0 + R <= n && reinterpret_cast<uintptr_t>(mask + i0) % 16 == 0) {
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(mask + i0) + q);
+        w[4 * q] = v.x;
+        w[4 * q + 1] = v.y;
+        w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) w[j] = i0 + j < n ? __ldg(mask + i0 + j) : 0u;
+}
+
+// This thread's R outputs of lane yl: 16-byte stores where they lie in
+// [0, n) on a 16-byte boundary, else element by element.
+template <typename T, int R>
+__device__ __forceinline__ void store_rows(T* __restrict__ yl, long long n,
+                                           long long i0, const T (&acc)[R]) {
+  constexpr int V = vector_elems<T>();
+  if constexpr (R % V == 0) {
+    if (i0 + R <= n && reinterpret_cast<uintptr_t>(yl + i0) % 16 == 0) {
+      using VT = typename Vec<T>::type;
+#pragma unroll
+      for (int q = 0; q < R / V; ++q) {
+        reinterpret_cast<VT*>(yl + i0)[q] = pack(acc + q * V);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    if (i0 + j < n) yl[i0 + j] = acc[j];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dia_masked_kernel(const uint32_t* __restrict__ mask,
                   const T* __restrict__ xt, T* __restrict__ yt, long long n,
-                  int L, DiaParams<T> p) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (i >= n) return;
-  const uint32_t w = mask[i];
-  for (int l = blockIdx.y; l < L; l += gridDim.y) {
-    const T* x = xt + static_cast<long long>(l) * n;
-    T acc = T(0);
+                  int L, const __grid_constant__ DiaParams<T> p) {
+  constexpr int R = rows_per_thread<T>();
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * R;
+  if (i0 >= n) return;
+  uint32_t w[R];
+  load_mask<R>(mask, n, i0, w);
+  for (int l = 0; l < L; ++l) {
+    const T* xl = xt + static_cast<long long>(l) * n;
+    T acc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] = T(0);
     for (int k = 0; k < p.K; ++k) {
-      const long long j = i + p.offsets[k];
-      const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-      const T c = ((w >> k) & 1u) ? p.vals[k] : T(0);
-      acc = tps_rn::add(acc, tps_rn::mul(c, xv));
+      T x[R];
+      row_values<T, R>(xl, n, i0 + p.offsets[k], x);
+      const T v = p.vals[k];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const T c = ((w[j] >> k) & 1u) ? v : T(0);
+        acc[j] = tps_rn::add(acc[j], tps_rn::mul(c, x[j]));
+      }
     }
-    yt[static_cast<long long>(l) * n + i] = acc;
+    store_rows<T, R>(yt + static_cast<long long>(l) * n, n, i0, acc);
   }
 }
 
 template <typename T>
 int launch(const void* mask, const void* xt, void* yt, long long n, int L,
            int K, const int* offsets, const T* vals, void* stream) {
+  constexpr long long B = static_cast<long long>(kThreads) *
+                          rows_per_thread<T>();
   if (K < 0 || K > kMaxPlanes || n < 0 || L < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -88,8 +239,7 @@ int launch(const void* mask, const void* xt, void* yt, long long n, int L,
     p.offsets[k] = offsets[k];
     p.vals[k] = vals[k];
   }
-  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(L < kMaxGridY ? L : kMaxGridY));
+  const unsigned grid = static_cast<unsigned>((n + B - 1) / B);
   dia_masked_kernel<T><<<grid, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(mask), static_cast<const T*>(xt),
@@ -114,4 +264,16 @@ extern "C" int tps_dia_masked_f64(const void* mask, const void* xt, void* yt,
                                   const int* offsets, const double* vals,
                                   void* stream) {
   return launch<double>(mask, xt, yt, n, L, K, offsets, vals, stream);
+}
+
+// K1's geometry for values of value_bytes (4 or 8) into out[3]: threads a
+// CTA, rows a thread, values a vector load. Returns 0, or 1 for another
+// value size.
+extern "C" int tps_dia_masked_geometry(int value_bytes, int* out) {
+  if (value_bytes != 4 && value_bytes != 8) return 1;
+  const bool f64 = value_bytes == 8;
+  out[0] = kThreads;
+  out[1] = f64 ? rows_per_thread<double>() : rows_per_thread<float>();
+  out[2] = f64 ? vector_elems<double>() : vector_elems<float>();
+  return 0;
 }

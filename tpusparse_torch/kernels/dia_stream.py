@@ -59,6 +59,23 @@ PLANES_LAUNCHES_F64 = 0
 # ctypes scalar of K1's host coefficients, by operand type.
 _C_VALS = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
+# K1's geometry, mirrored from csrc/dia_masked.cu (kThreads, kRowBytes,
+# kVectorBytes) and checked against the library at every launch: threads
+# a CTA, bytes of a thread's run of rows, bytes of a vector load of x.
+K1_THREADS = 256
+K1_ROW_BYTES = 32
+K1_VECTOR_BYTES = 16
+
+# the library's geometry by value size, read once
+_lib_geometry: dict = {}
+
+
+def k1_geometry(itemsize: int) -> tuple:
+    """(threads a CTA, rows a thread, values a vector load) of K1
+    (itemsize 4) or K1d (itemsize 8)."""
+    return (K1_THREADS, K1_ROW_BYTES // itemsize,
+            K1_VECTOR_BYTES // itemsize)
+
 
 def mask_words(dia_host) -> np.ndarray:
     """(n,) uint32 validity words of a host DIA plan: bit k = plane k
@@ -172,15 +189,32 @@ def _check(D: DiaStreamDevice, XT: torch.Tensor) -> None:
             "needed")
 
 
+def _check_geometry(lib, itemsize: int) -> None:
+    """Raise unless the library's K1 geometry for ``itemsize`` is the
+    mirror's (``k1_geometry``)."""
+    if itemsize not in _lib_geometry:
+        out = (ctypes.c_int * 3)()
+        if lib.tps_dia_masked_geometry(itemsize, ctypes.addressof(out)):
+            raise RuntimeError(f"K1 has no geometry for {itemsize}-byte "
+                               "values")
+        _lib_geometry[itemsize] = tuple(out)
+    if _lib_geometry[itemsize] != k1_geometry(itemsize):
+        raise RuntimeError(
+            f"K1's geometry for {itemsize}-byte values is "
+            f"{_lib_geometry[itemsize]} in the library, "
+            f"{k1_geometry(itemsize)} in dia_stream.py")
+
+
 def _launch(D: DiaStreamDevice, XT: torch.Tensor) -> torch.Tensor:
     global LAUNCHES, LAUNCHES_F64
     L, n = XT.shape
     K = len(D.offsets)
+    lib = _build.library()
+    _check_geometry(lib, XT.element_size())
     f64 = XT.dtype == torch.float64
     Y = torch.empty((L, n), dtype=XT.dtype, device=XT.device)
     offs = (ctypes.c_int * max(K, 1))(*D.offsets)
     vals = (_C_VALS[XT.dtype] * max(K, 1))(*D.vals_host)
-    lib = _build.library()
     name = "tps_dia_masked_f64" if f64 else "tps_dia_masked"
     with torch.cuda.device(XT.device):
         stream = torch.cuda.current_stream(XT.device).cuda_stream
