@@ -5,7 +5,8 @@ Drives the port's two main paths through its hand-written CUDA kernels
 and exits non-zero on any failure:
 
   * one right-hand side: host ingest -> ``plan_matrix(csr, "auto")`` ->
-    ``spmv`` / ``cg_solve`` (K1 masked DIA, K2 merge-path SpMV);
+    ``spmv`` / ``cg_solve`` (K1 masked DIA, K2 merge-path SpMV), and
+    ``strategy='reference'`` (KR, the reference product);
   * L right-hand sides: ``plan_matrix(csr, strategy, L=16)`` -> ``spmm``
     / ``cg_solve_multi`` (K1 at L > 1, K3 merge-path SpMM, K4 row-split
     SpMM);
@@ -18,7 +19,7 @@ and exits non-zero on any failure:
     -> ``spmv`` / ``cg_solve`` / ``cg_solve_refined`` (K1d, K2d and K5d,
     the float64 twins of K1, K2 and K5, with float32 inner solves);
   * float64 at L = 16: ``spmm`` / ``cg_solve_multi_refined`` (K1d, K3d,
-    K4d);
+    K4d, and KRd, the float64 reference product);
   * reordering: ``plan_matrix(csr, reorder='auto')`` -> a
     ``ReorderedPlan`` -> ``spmv`` / ``cg_solve`` / ``cg_solve_multi``
     (K6 permutes in and out; K2, K3 on the inner plan);
@@ -71,9 +72,13 @@ Phases, each printed on its own lines:
       full and 0.3 fill, edges cut mid-block with an emptied block row,
       nnz = 0) at L = 1, 3, 16 and 32, within 2(w_i + 2)u|A||X| of their
       plain versions and of a float64 product (w_i the stored entries of
-      row i), two runs bitwise equal;
+      row i), two runs bitwise equal; KR and KRd (the reference
+      product) on K2's fixtures at L = 1, 3 and 16: two calls bitwise
+      equal, equal to the CPU's ``index_add_`` bits, and within
+      (nnz_i + 2)u|A||X| of the plain version on the card;
   [3] the single-RHS slice at the bench fixture lap3d-48: AUTO must give
-      a masked DIA plan; SpMV times (CUDA events per call as made, and
+      a masked DIA plan; a ``'reference'`` plan (KR) repeats its bits;
+      SpMV times (CUDA events per call as made, and
       device time from CUDA-graph replay) beside the plain versions', the
       ``torch.sparse`` CSR product's (the library call, never on the
       path) and the bound (bytes or operations over the H100's peaks,
@@ -114,14 +119,18 @@ Phases, each printed on its own lines:
       float64 and the float64 bound; ``cg_solve`` to 1e-10;
       ``cg_solve_refined`` with the K1 float32 plan inside to 1e-12),
       var-7-160 (AUTO must plan K5d: ``spmv``, ``cg_solve_refined``
-      with K5 inside), rmat-18-ef16 (``spmv`` on ``'merge'``: K2d, with
+      with K5 inside; outside the counts, K5d alone at L = 16 timed
+      beside its plain version, ``torch.sparse`` and the bound),
+      rmat-18-ef16 (``spmv`` on ``'merge'``: K2d, with
       the profiler split of one call as in [4]; lap3d-160 on
       ``'merge'`` timed the same way, outside the counts) and
       rmat_spd-17-ef4 (AUTO must plan merge: ``cg_solve`` on K2d,
       ``cg_solve_refined`` with K2 inside); every refinement must reach
-      a float64 true residual < 1e-11;
+      a float64 true residual < 1e-11; each float64 reference product
+      (KRd) repeats its bits;
  [11] float64 at L = 16: ``spmm`` on lap3d-160 AUTO (K1d on (L, n)),
-      ``'merge'`` (K3d) and ``'row_split'`` (K4d), on rmat-18-ef16
+      ``'merge'`` (K3d), ``'row_split'`` (K4d) and ``'reference'``
+      (KRd, which must repeat its bits), on rmat-18-ef16
       ``'merge'`` (K3d) and ``'row_split'`` (K4d), K4d's result also
       against its plain version (within 2(nnz_i + 2)u|A||X| on the card,
       bitwise on CPU copies); ``cg_solve_multi_refined`` on lap3d-160 to
@@ -166,7 +175,8 @@ Phases, each printed on its own lines:
       on both plans (iterations within 1, ms/iteration); Jacobi
       IC(0)-PCG at L = 16 on natural-order lap3d-128 on both plans, K7
       and the Jacobi strict triangles' K5 held against their plain
-      versions on its operands;
+      versions on its operands, and K5 on the lower triangle timed
+      alone outside the counts;
  [15] the BSR path: ``make_block_random(8192, 4, seed=0)`` (65,536 x
       1,048,576, 33.5M nnz) with its ``fill_estimate``; ``spmv`` and
       ``spmm`` at L = 1 and 16 on a 'bsr' plan (K8) and its float64 plan
@@ -177,9 +187,10 @@ Phases, each printed on its own lines:
       the merge plan of the same matrix;
   [5] launch counts of each main path, counted from 0 just before it
       ([3]-[4], [6]-[7], [8], [9], [10], [11], [12], [13], [14] and
-      [15]) and read just after: K1 and K2 must have run on the first,
-      K1, K3 and K4 on the second, K5 on the third and the fourth, K1d,
-      K2d and K5d on the fifth, K1d, K3d and K4d on the sixth, K6, K2 and
+      [15]) and read just after: K1, K2 and KR must have run on the
+      first, K1, K3 and K4 on the second, K5 on the third and the
+      fourth, K1d, K2d and K5d on the fifth, K1d, K3d, K4d and KRd on the
+      sixth, K6, K2 and
       K3 on the seventh, K6, K3 and K3d on the eighth, K7 and K1 on the
       ninth, K8 and K8d on the tenth.
 
@@ -409,6 +420,49 @@ def k2_vs_plain(name, csr, seed):
     print(f"[2] K2 {name} {M.num_rows}x{M.num_cols} nnz {M.nnz}: "
           f"max|K2-plain| {err:.3e} (normwise {err / max(amax, 1e-30):.2e}"
           f" <= 1e-5), row bound vs float64 PASS, bitwise repeat PASS")
+    return err
+
+
+def kr_checks(fixtures):
+    """[2] KR and KRd, the reference product, on K2's fixtures at L = 1,
+    3 and 16: two calls bitwise equal, equal to the CPU's ``index_add_``
+    bits, and within (nnz_i + 2)u|A||X| of the plain version on the card
+    (whose ``index_add_`` adds in no fixed order). Returns the largest
+    |KR - plain| and |KRd - plain|."""
+    from tpusparse_torch.ops.reference import csr_matmat, csr_matmat_plain
+
+    err = {"KR": 0.0, "KRd": 0.0}
+    for name, csr in fixtures:
+        for dtype, kernel, u in ((np.float32, "KR", U),
+                                 (np.float64, "KRd", U64)):
+            H, C = csr.to("cpu", dtype), csr.to("cuda", dtype)
+            args = (C.num_rows, C.row_offsets, C.col_indices)
+            nnz_i = (C.row_offsets[1:] - C.row_offsets[:-1]).double()
+            for L in (1, 3, 16):
+                Xh = torch.from_numpy(np.random.default_rng(200 + L)
+                                      .standard_normal((csr.num_cols, L))
+                                      .astype(dtype))
+                X = Xh.cuda()
+                Y1 = csr_matmat(*args, C.values, X)
+                Y2 = csr_matmat(*args, C.values, X)
+                Yh = csr_matmat(H.num_rows, H.row_offsets, H.col_indices,
+                                H.values, Xh)
+                Yp = csr_matmat_plain(*args, C.values, X)
+                AX = csr_matmat_plain(*args, C.values.abs().double(),
+                                      X.abs().double())
+                what = f"{kernel} {name} L={L}"
+                check(torch.equal(Y1, Y2), f"{what}: two calls bitwise "
+                      "equal")
+                check(torch.equal(Y1.cpu(), Yh), f"{what}: the CPU's bits")
+                check(((Y1 - Yp).abs().double()
+                       <= (nnz_i[:, None] + 2) * u * AX).all(),
+                      f"{what}: within (nnz_i+2)u|A||X| of plain")
+                if Y1.numel():
+                    err[kernel] = max(err[kernel],
+                                      float((Y1 - Yp).abs().max()))
+        print(f"[2] KR and KRd {name}: two calls bitwise equal and equal "
+              f"to the CPU's bits at L = 1, 3, 16; within (nnz_i+2)u|A||X|"
+              f" of the card's index_add_", flush=True)
     return err
 
 
@@ -672,18 +726,21 @@ def slice_spmv(phase, tag, csr, seed):
     )
     from tpusparse_torch.bench.timing import cuda_time_ms
     from tpusparse_torch.kernels import dia_stream, merge_spmv
-    from tpusparse_torch.ops.reference import csr_matvec
+    from tpusparse_torch.ops.reference import csr_matvec, csr_matvec_plain
 
-    A = plan_matrix(csr, "auto", device="cuda")
+    A = plan_matrix(csr, "auto", device="cuda", dtype=np.float32)
     check(plan_kind(A) == "dia" and isinstance(A.dia,
                                                dia_stream.DiaStreamDevice),
           f"{tag}: AUTO gives a masked DIA plan (got {plan_kind(A)})")
-    M = plan_matrix(csr, "merge", device="cuda")
+    M = plan_matrix(csr, "merge", device="cuda", dtype=np.float32)
+    R = plan_matrix(csr, "reference", device="cuda", dtype=np.float32)
     x = rand(seed, csr.num_cols)
     args = (M.num_rows, M.row_offsets, M.col_indices)
     y64 = csr_matvec(*args, M.values.double(), x.double())
     ax = csr_matvec(*args, M.values.abs().double(), x.abs().double())
-    for label, P in (("auto", A), ("merge", M)):
+    check(torch.equal(spmv(R, x), spmv(R, x)),
+          f"{tag} reference (KR): two calls bitwise equal")
+    for label, P in (("auto", A), ("merge", M), ("reference", R)):
         y = spmv(P, x)
         check(torch.isfinite(y).all() and y.shape == (csr.num_rows,),
               f"{tag} {label}: finite y of shape ({csr.num_rows},)")
@@ -697,12 +754,15 @@ def slice_spmv(phase, tag, csr, seed):
                         lambda: dia_stream.spmm_dia_masked_plain(A.dia, XT)),
         "K2": time_pair(lambda: spmv(M, x),
                         lambda: merge_spmv.spmv_merge_plain(M, x)),
+        "KR": time_pair(lambda: spmv(R, x),
+                        lambda: csr_matvec_plain(*args, R.values, x)),
     }
     fl = spmv_flops(csr.nnz)
     n = csr.num_rows
     for k, label, nbytes in (
             ("K1", "auto (masked DIA)", dia_masked_bytes(n)),
-            ("K2", "merge", spmm_bytes(csr.nnz, n, csr.num_cols))):
+            ("K2", "merge", spmm_bytes(csr.nnz, n, csr.num_cols)),
+            ("KR", "reference", spmm_bytes(csr.nnz, n, csr.num_cols))):
         times[k]["library"] = lib_ms
         times[k]["bound"] = report(phase, f"{tag} spmv {label}", times[k],
                                    fl, nbytes)
@@ -791,7 +851,7 @@ def slice_var_spmv(tag, csr, seed):
     from tpusparse_torch.formats.dia import DiaDevice
     from tpusparse_torch.kernels import dia_stream
 
-    A32 = plan_matrix(csr, "auto", device="cuda")
+    A32 = plan_matrix(csr, "auto", device="cuda", dtype=np.float32)
     check(plan_kind(A32) == "dia" and isinstance(A32.dia, DiaDevice),
           f"{tag}: AUTO gives value planes (got {plan_kind(A32)})")
     A16 = plan_dia_bf16(csr, device="cuda")
@@ -953,6 +1013,8 @@ def slice_fp64_spmv(tag, csr, strategy, kernel, seed):
     y = spmv(A, x)
     args = (C.num_rows, C.row_offsets, C.col_indices)
     y64 = spmv(C, x)
+    check(torch.equal(spmv(C, x), y64),
+          f"{tag}: the float64 reference product (KRd) repeats its bits")
     ax = csr_matvec(*args, C.values.abs(), x.abs())
     nnz_i = (C.row_offsets[1:] - C.row_offsets[:-1]).double()
     check(y.dtype == torch.float64 and y.shape == (n,)
@@ -987,11 +1049,13 @@ def slice_fp64_spmm(tag, csr, C, plans, seed):
     )
     from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
     from tpusparse_torch.kernels import dia_stream, ell_spmm, spmm_merge
-    from tpusparse_torch.ops.reference import csr_matmat
+    from tpusparse_torch.ops.reference import csr_matmat, csr_matmat_plain
 
     X = rand64(seed, (C.num_cols, L_MULTI))
     args = (C.num_rows, C.row_offsets, C.col_indices)
     Y64 = csr_matmat(*args, C.values, X)
+    check(torch.equal(csr_matmat(*args, C.values, X), Y64),
+          f"{tag}: the float64 reference product (KRd) repeats its bits")
     AX = csr_matmat(*args, C.values.abs(), X.abs())
     nnz_i = (C.row_offsets[1:] - C.row_offsets[:-1]).double()[:, None]
     lib = library_csr(C)
@@ -1019,8 +1083,11 @@ def slice_fp64_spmm(tag, csr, C, plans, seed):
                   f"transposes): {call[0]:.4f} ms/call, device "
                   f"{call[1]:.4f} ms")
         else:
-            plain = (spmm_merge.spmm_merge_plain if kernel == "K3d"
-                     else ell_spmm.spmm_row_split_plain)
+            plain = {"K3d": spmm_merge.spmm_merge_plain,
+                     "K4d": ell_spmm.spmm_row_split_plain,
+                     "KRd": lambda P, X: csr_matmat_plain(
+                         P.num_rows, P.row_offsets, P.col_indices,
+                         P.values, X)}[kernel]
             t = time_pair(lambda: spmm(P, X), lambda: plain(P, X))
             nbytes = spmm_bytes(C.nnz, C.num_rows, C.num_cols, L_MULTI, 8)
         t["library"] = lib_ms
@@ -1082,6 +1149,7 @@ def launch_counters():
     """name -> (module, attribute) of every kernel's launch count."""
     from tpusparse_torch.kernels import (
         bsr,
+        csr_reference,
         dia_nmajor,
         dia_stream,
         ell_spmm,
@@ -1100,7 +1168,9 @@ def launch_counters():
             "K5d": (dia_stream, "PLANES_LAUNCHES_F64"),
             "K6": (permute, "LAUNCHES"),
             "K7": (dia_nmajor, "LAUNCHES"),
-            "K8": (bsr, "LAUNCHES"), "K8d": (bsr, "LAUNCHES_F64")}
+            "K8": (bsr, "LAUNCHES"), "K8d": (bsr, "LAUNCHES_F64"),
+            "KR": (csr_reference, "LAUNCHES"),
+            "KRd": (csr_reference, "LAUNCHES_F64")}
 
 
 @contextlib.contextmanager
@@ -1214,7 +1284,7 @@ def k2_spmv_times(tag, csr, seed):
     from tpusparse_torch.kernels import merge_spmv
     from tpusparse_torch.ops.reference import csr_matvec
 
-    M = plan_matrix(csr, "merge", device="cuda")
+    M = plan_matrix(csr, "merge", device="cuda", dtype=np.float32)
     x = rand(seed, csr.num_cols)
     with uncounted():
         y = spmv(M, x)
@@ -1549,7 +1619,7 @@ def preconditioned_phase(gen, reset_counts, read_counts):
     finally:
         spai._batched_lstsq = lstsq
     Mp, mp_ms = timed(lambda: plan_matrix(M, "auto", L=L_MULTI,
-                                          device="cuda"))
+                                          device="cuda", dtype=np.float32))
     print(f"[13] {tag} SPAI: {M.nnz} entries, spai_inverse {spai_ms:.1f} ms "
           f"(host structure alone {struct_ms:.1f} ms; batched QR least "
           f"squares on the card {sum(ms for _, ms in qr):.1f} ms over "
@@ -1647,7 +1717,7 @@ def k7_vs_plain(name, csr, L, seed):
     from tpusparse_torch import plan_kind, plan_matrix
     from tpusparse_torch.kernels import dia_nmajor, dia_stream
 
-    A = plan_matrix(csr, "nmajor", L=L, device="cuda")
+    A = plan_matrix(csr, "nmajor", L=L, device="cuda", dtype=np.float32)
     check(plan_kind(A) == "dia_nmajor", f"{name}: an n-major plan")
     X = rand(seed, (csr.num_cols, L))
     Y = dia_nmajor.nmajor_matmat(A.dia, X)
@@ -1731,6 +1801,36 @@ def k8_vs_plain(name, csr, dtype, seed):
     return worst
 
 
+def k5_alone_times(phase, what, D, XT, fp64=False):
+    """K5 (K5d) alone on (L, n) value planes, outside the launch counts:
+    timed beside its plain version, ``torch.sparse`` CSR of the same
+    planes in the same type on X (n, L), and the bound."""
+    from tpusparse_torch.bench.models import dia_planes_bytes, spmv_flops
+    from tpusparse_torch.bench.timing import cuda_time_ms
+    from tpusparse_torch.kernels import dia_stream
+
+    L = XT.shape[0]
+    ro, c, v = dia_as_csr(D)
+    lib = torch.sparse_csr_tensor(ro, c, v.to(XT.dtype),
+                                  size=(D.num_rows, D.num_cols))
+    X = XT.T.contiguous()
+    with uncounted():
+        check(torch.equal(dia_stream.spmm_dia_planes_t(D, XT),
+                          dia_stream.spmm_dia_planes_plain(D, XT)),
+              f"{what}: bitwise equal to its plain version")
+        t = time_pair(lambda: dia_stream.spmm_dia_planes_t(D, XT),
+                      lambda: dia_stream.spmm_dia_planes_plain(D, XT))
+        t["library"] = cuda_time_ms(lambda: lib @ X)
+    t["bound"] = report(phase, f"{what} ({D.num_rows} rows, "
+                        f"{len(D.offsets)} planes) alone on (L, n) L={L}",
+                        t, spmv_flops(int(v.numel()), L),
+                        dia_planes_bytes(D.num_rows, D.num_cols,
+                                         len(D.offsets), L,
+                                         D.data.element_size(),
+                                         XT.element_size()), fp64=fp64)
+    return t
+
+
 def nmajor_phase(gen, lap160, reset_counts, read_counts):
     """[14] The n-major path at full width, lap3d-160 at L = 16:
     ``spmm`` on ``strategy='nmajor'`` (K7, (n, L) with no transposes)
@@ -1742,7 +1842,8 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
     on natural-order lap3d-128 on both plans (the n-major plan hands the
     preconditioner (n, L) blocks, AUTO behind two transposes an
     iteration), with K7 on B and K5 on the Jacobi strict triangles held
-    against their plain versions. Returns (launch counts, K7 timings)."""
+    against their plain versions, and K5 timed alone on the lower one.
+    Returns (launch counts, K7 timings, K5 timings)."""
     from tpusparse_torch import (
         cg_solve_multi,
         ic0_factorize,
@@ -1761,8 +1862,9 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
 
     reset_counts()
     n = lap160.num_rows
-    N = plan_matrix(lap160, "nmajor", L=L_MULTI, device="cuda")
-    A = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda")
+    N = plan_matrix(lap160, "nmajor", L=L_MULTI, device="cuda",
+                    dtype=np.float32)
+    A = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda", dtype=np.float32)
     check(plan_kind(N) == "dia_nmajor" and N.dia.L == L_MULTI,
           "lap3d-160 'nmajor' at L=16 plans K7")
     check(plan_kind(A) == "dia" and isinstance(
@@ -1833,8 +1935,9 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
     torch.cuda.empty_cache()
     # Jacobi IC(0)-PCG on natural-order lap3d-128
     lap128 = gen.make_laplacian_grid3d(128).to_csr()
-    N = plan_matrix(lap128, "nmajor", L=L_MULTI, device="cuda")
-    A = plan_matrix(lap128, "auto", L=L_MULTI, device="cuda")
+    N = plan_matrix(lap128, "nmajor", L=L_MULTI, device="cuda",
+                    dtype=np.float32)
+    A = plan_matrix(lap128, "auto", L=L_MULTI, device="cuda", dtype=np.float32)
     C = lap128.to("cuda")
     Lf, f_ms = timed(lambda: ic0_factorize(lap128))
     prec, p_ms = timed(lambda: make_ic0_preconditioner(
@@ -1856,6 +1959,8 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
                   f"{what}: K5 on B bitwise equal to its plain version")
     print(f"[14] lap3d-128 L={L_MULTI}: K7 on B and K5 on both Jacobi strict "
           "triangles bitwise equal to their plain versions", flush=True)
+    t_tri = k5_alone_times(14, "lap3d-128 Jacobi lower strict triangle K5",
+                           prec.fwd.strict.dia, BT)
     del BT
 
     def pcg_on(P):
@@ -1876,7 +1981,7 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
           f"iterations, {ms_n:.4f} ms/iteration; AUTO {it_a}, {ms_a:.4f} "
           "ms/iteration", flush=True)
     counts = read_counts("n-major path", ("K7", "K1"))
-    return counts, rows["K7 alone on (n, L)"]
+    return counts, rows["K7 alone on (n, L)"], t_tri
 
 
 def bsr_phase(gen, reset_counts, read_counts):
@@ -1922,7 +2027,7 @@ def bsr_phase(gen, reset_counts, read_counts):
           f"{B32.fill_ratio:.4f}, {B32.blocks.numel() * 4 / 1e6:.1f} MB of "
           f"float32 blocks; planned in {plan_ms[np.float32]:.1f} ms "
           f"(float64 {plan_ms[np.float64]:.1f} ms)", flush=True)
-    M = plan_matrix(csr, "merge", L=L_MULTI, device="cuda")
+    M = plan_matrix(csr, "merge", L=L_MULTI, device="cuda", dtype=np.float32)
     C64 = csr.to("cuda", torch.float64)
     lib = library_csr(M)
     lib64 = library_csr(C64)
@@ -2023,7 +2128,7 @@ def main() -> int:
 
     # [2] kernels against their plain versions
     lap48 = gen.make_laplacian_grid3d(48).to_csr()
-    D48 = plan_matrix(lap48, "auto", device="cuda").dia
+    D48 = plan_matrix(lap48, "auto", device="cuda", dtype=np.float32).dia
     k1_err = max(k1_vs_plain("lap3d-48", D48, L, 10 + L) for L in (1, 4, 16))
     k1_more = k1_checks(gen, plan_matrix)
     k1_err = max(k1_err, k1_more["K1"])
@@ -2040,6 +2145,7 @@ def main() -> int:
                             np.zeros(0, np.int32), np.zeros(0)))]
     k2_err = max(k2_vs_plain(name, csr, 20 + i)
                  for i, (name, csr) in enumerate(fixtures))
+    kr_err = kr_checks(fixtures)
     k3_err = max(spmm_vs_plain("K3", name, csr, 40 + i)
                  for i, (name, csr) in enumerate(fixtures))
     # K4 and K4d also bitwise against their plain versions on CPU copies
@@ -2070,7 +2176,8 @@ def main() -> int:
     scr160, p160 = scrambled(lap160, 5)
     A12, plan12_ms = timed(lambda: plan_matrix(scr160, "auto",
                                                reorder="auto",
-                                               device="cuda"))
+                                               device="cuda",
+                                               dtype=np.float32))
     check(isinstance(A12, ReorderedPlan) and A12.order == "rcm",
           "scrambled lap3d-160: reorder='auto' plans RCM")
     k6_err = k6_checks(A12.perm.cpu().numpy())
@@ -2125,14 +2232,17 @@ def main() -> int:
     for tag, csr in (("rmat_spd-17-ef4 merge (K2)", rmat_spd17),
                      ("gr_30_30 merge (K2)", gr)):
         b = rand(33, csr.num_rows)
-        run_cg(tag, plan_matrix(csr, "merge", device="cuda"), csr, b)
-    path1 = read_counts("single-RHS path", ("K1", "K2"))
+        run_cg(tag, plan_matrix(csr, "merge", device="cuda",
+                                dtype=np.float32), csr, b)
+    path1 = read_counts("single-RHS path", ("K1", "K2", "KR"))
 
     # [6]-[7] the multi-RHS path, counted from 0 again
     reset_counts()
     del A160, M160
-    A16 = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda")
-    M16 = plan_matrix(lap160, "merge", L=L_MULTI, device="cuda")
+    A16 = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda",
+                      dtype=np.float32)
+    M16 = plan_matrix(lap160, "merge", L=L_MULTI, device="cuda",
+                      dtype=np.float32)
     t6 = slice_spmm("lap3d-160", lap160, M16, (
         ("auto", A16, "K1", "dia"), ("merge", M16, "K3", "merge"),
         ("row_split", row_split_plan(6, "lap3d-160", lap160), "K4",
@@ -2141,7 +2251,8 @@ def main() -> int:
     launch_split(6, "lap3d-160 spmm merge (K3)", lambda: spmm(M16, X16),
                  K3_KERNELS)
     del X16
-    Mr = plan_matrix(rmat18, "auto", L=L_MULTI, device="cuda")
+    Mr = plan_matrix(rmat18, "auto", L=L_MULTI, device="cuda",
+                     dtype=np.float32)
     t6r = slice_spmm("rmat-18-ef16", rmat18, Mr, (
         ("auto", Mr, "K3", "merge"),
         ("row_split", row_split_plan(6, "rmat-18-ef16", rmat18), "K4",
@@ -2153,12 +2264,14 @@ def main() -> int:
                       M16.values.double(), X_true).float()
     it_multi160 = run_cg_multi("lap3d-160 auto (K1, (L, n) state)", A16, M16,
                                B160)[0]
-    R17 = plan_matrix(rmat_spd17, "auto", L=L_MULTI, device="cuda")
+    R17 = plan_matrix(rmat_spd17, "auto", L=L_MULTI, device="cuda",
+                      dtype=np.float32)
     check(isinstance(R17, merge_spmv.MergeDevice),
           "rmat_spd-17-ef4 AUTO at L=16 plans merge")
     run_cg_multi("rmat_spd-17-ef4 auto (K3)", R17, R17,
                  rand(37, (rmat_spd17.num_rows, L_MULTI)))
-    G = plan_matrix(gr, "row_split", L=L_MULTI, device="cuda")
+    G = plan_matrix(gr, "row_split", L=L_MULTI, device="cuda",
+                    dtype=np.float32)
     run_cg_multi("gr_30_30 row_split (K4)", G, G,
                  rand(38, (gr.num_rows, L_MULTI)))
     path2 = read_counts("multi-RHS path", ("K1", "K3", "K4"))
@@ -2202,7 +2315,7 @@ def main() -> int:
 
     # [9] variable-coefficient operators at L = 16, counted from 0 again
     reset_counts()
-    W = plan_matrix(var7, "auto", L=L_MULTI, device="cuda")
+    W = plan_matrix(var7, "auto", L=L_MULTI, device="cuda", dtype=np.float32)
     check(plan_kind(W) == "dia" and W.rest is None
           and not isinstance(W.dia, dia_stream.DiaStreamDevice),
           "var-7-160 AUTO at L=16 plans value planes")
@@ -2248,15 +2361,18 @@ def main() -> int:
               lambda: cg_solve(L64, b64, max_iters=10000,
                                tolerance=CG64_TOL),
               lap160, b64, CG64_TOL, CG64_TRUE_MAX)
-    L32 = plan_matrix(lap160, "auto", device="cuda")
+    L32 = plan_matrix(lap160, "auto", device="cuda", dtype=np.float32)
     run_solve(10, "cg_refined lap3d-160 (K1 inner, K1d residuals)",
               lambda: cg_solve_refined(L32, L64, b64), lap160, b64,
               REFINE_TOL, REFINE_TRUE_MAX)
     del L32, L64, b64
     V64, t10_k5 = slice_fp64_spmv("var-7-160", var7, "auto", "K5d", 52)
+    t10_k5_16 = k5_alone_times(10, "var-7-160 K5d float64", V64.dia,
+                               rand64(60, (L_MULTI, var7.num_cols)),
+                               fp64=True)
     b7 = torch.from_numpy(var7.to_scipy() @ np.random.default_rng(
         53).standard_normal(var7.num_cols)).cuda()
-    V32 = plan_matrix(var7, "auto", device="cuda")
+    V32 = plan_matrix(var7, "auto", device="cuda", dtype=np.float32)
     run_solve(10, "cg_refined var-7-160 (K5 inner, K5d residuals)",
               lambda: cg_solve_refined(V32, V64, b7), var7, b7, REFINE_TOL,
               REFINE_TRUE_MAX)
@@ -2278,7 +2394,7 @@ def main() -> int:
               lambda: cg_solve(R64, b17, max_iters=10000,
                                tolerance=CG64_TOL),
               rmat_spd17, b17, CG64_TOL, CG64_TRUE_MAX)
-    R32 = plan_matrix(rmat_spd17, "auto", device="cuda")
+    R32 = plan_matrix(rmat_spd17, "auto", device="cuda", dtype=np.float32)
     run_solve(10, "cg_refined rmat_spd-17-ef4 (K2 inner, K2d residuals)",
               lambda: cg_solve_refined(R32, R64, b17), rmat_spd17, b17,
               REFINE_TOL, REFINE_TRUE_MAX)
@@ -2299,11 +2415,12 @@ def main() -> int:
         ("merge", plan_matrix(lap160, "merge", dtype=np.float64, L=L_MULTI,
                               device="cuda"), "K3d"),
         ("row_split", row_split_plan(11, "lap3d-160", lap160, np.float64),
-         "K4d")), 56)
+         "K4d"), ("reference", C64, "KRd")), 56)
     X_true = rand64(57, (lap160.num_cols, L_MULTI))
     B64 = csr_matmat(C64.num_rows, C64.row_offsets, C64.col_indices,
                      C64.values, X_true)
-    M32 = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda")
+    M32 = plan_matrix(lap160, "auto", L=L_MULTI, device="cuda",
+                      dtype=np.float32)
     run_refined_multi("lap3d-160 (K1 inner, K1d residuals)", M32, M64, C64,
                       B64)
     del C64, M64, M32, X_true, B64
@@ -2316,7 +2433,8 @@ def main() -> int:
                                      np.float64), "K4d")), 58)
     del Cr
     t11_fem = fem2d_k3d_times(gen)
-    path6 = read_counts("float64 multi-RHS path", ("K1d", "K3d", "K4d"))
+    path6 = read_counts("float64 multi-RHS path",
+                        ("K1d", "K3d", "K4d", "KRd"))
     torch.cuda.empty_cache()
 
     # [12] the reordered path at full width, counted from 0 again
@@ -2329,7 +2447,7 @@ def main() -> int:
           f"nnz): reorder='auto' plans {plan_kind(A12)} in {plan12_ms:.1f} "
           f"ms; bandwidth {bw0} -> {bw1}", flush=True)
     C12 = scr160.to("cuda")
-    S12 = plan_matrix(scr160, "auto", device="cuda")
+    S12 = plan_matrix(scr160, "auto", device="cuda", dtype=np.float32)
     x = rand(400, scr160.num_cols)
     args = (C12.num_rows, C12.row_offsets, C12.col_indices)
     y64 = csr_matvec(*args, C12.values.double(), x.double())
@@ -2378,7 +2496,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # [14] the n-major path at full width, counted from 0 again
-    path9, t14 = nmajor_phase(gen, lap160, reset_counts, read_counts)
+    path9, t14, t14_k5 = nmajor_phase(gen, lap160, reset_counts,
+                                      read_counts)
     del lap160
     torch.cuda.empty_cache()
 
@@ -2483,6 +2602,13 @@ def main() -> int:
         entry("K5d value-plane DIA SpMV, float64 planes", "dia_planes.cu",
               "tpusparse/kernels/dia_stream.py:332", "K5d", err64["K5d"],
               t10_k5, "var-7-160 spmv float64 L=1, device time"),
+        entry("K5d value-plane DIA SpMM, float64 planes", "dia_planes.cu",
+              "tpusparse/kernels/dia_stream.py:332", "K5d", err64["K5d"],
+              t10_k5_16, f"var-7-160 K5d alone float64 L={L_MULTI} on "
+              "(L, n), device time"),
+        entry("K5 value-plane DIA SpMM, f32 planes", "dia_planes.cu", b2,
+              "K5", k5_err, t14_k5, f"lap3d-128 Jacobi lower strict "
+              f"triangle L={L_MULTI} on (L, n), device time"),
         entry("K6 row permutation, float32", "permute.cu",
               "tpusparse/kernels/permute.py:206", "K6", k6_err, t12[1],
               "lap3d-160 RCM permutation L=1, device time"),
@@ -2508,6 +2634,16 @@ def main() -> int:
               "tpusparse/kernels/bsr.py:165", "K8d", k8d_err,
               t15["K8d", L_MULTI], f"make_block_random(8192, 4) spmm "
               f"float64 L={L_MULTI}, device time"),
+        # KR and KRd are the reference product (strategy='reference' and
+        # the golden products); the JAX package's is XLA's segment sum,
+        # no pallas_call
+        entry("KR CSR reference product", "csr_reference.cu",
+              "tpusparse/ops/reference.py:29", "KR", kr_err["KR"],
+              t160["KR"], "lap3d-160 spmv reference L=1, device time"),
+        entry("KRd CSR reference product, float64", "csr_reference.cu",
+              "tpusparse/ops/reference.py:42", "KRd", kr_err["KRd"],
+              t11_lap["KRd"], f"lap3d-160 spmm float64 reference "
+              f"L={L_MULTI}, device time"),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

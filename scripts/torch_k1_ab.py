@@ -183,7 +183,7 @@ def solves() -> dict:
     csr = gen.make_laplacian_grid3d(160).to_csr()
     X_true = np.random.default_rng(57).standard_normal((csr.num_cols, 16))
     B = torch.from_numpy(csr.to_scipy() @ X_true).cuda()
-    M32 = plan_matrix(csr, "auto", L=16, device="cuda")
+    M32 = plan_matrix(csr, "auto", L=16, device="cuda", dtype=np.float32)
     M64 = plan_matrix(csr, "auto", dtype=np.float64, L=16, device="cuda")
     out = {"card": _smi(), "B_sha256": digest(B)}
     for i in range(2):

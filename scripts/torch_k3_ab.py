@@ -86,7 +86,8 @@ def make_fixtures(path: Path) -> None:
         csr = gen.make_laplacian_grid3d(128).to_csr()
         p = np.random.default_rng(5).permutation(csr.num_rows)
         scr = permute_symmetric(csr, p)
-        A = plan_matrix(scr, "auto", reorder="auto", L=16, device="cpu")
+        A = plan_matrix(scr, "auto", reorder="auto", L=16, device="cpu",
+                        dtype=np.float32)
         assert A.order == "rcm"
         return split_diag(ic0_factorize(A.permuted(scr)))[0]
 

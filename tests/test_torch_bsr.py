@@ -128,7 +128,7 @@ def test_k8_plain_matches_b6(grid, L):
     j32 = j.astype(np.float32)
     jb = JBcsr.from_csr(j32, 8, 128).to_device()
     assert jbsr._tileable(jb)
-    A = plan_matrix(_port(j), "bsr", device="cpu")
+    A = plan_matrix(_port(j), "bsr", device="cpu", dtype=np.float32)
     assert plan_kind(A) == "bsr" and A.blocks.dtype == torch.float32
     X = np.random.default_rng(L).standard_normal(
         (j.num_cols, L)).astype(np.float32)
@@ -177,7 +177,7 @@ def test_bsr_plan_edges_match_scipy(name, dtype):
 def test_bsr_plan_alpha_beta_and_jax_plan_kind():
     j = jgen.make_block_random(6, 2).to_csr().astype(np.float32)
     jA = jplan(j, "bsr", dtype=np.float32)
-    A = plan_matrix(_port(j), "bsr", device="cpu")
+    A = plan_matrix(_port(j), "bsr", device="cpu", dtype=np.float32)
     assert plan_kind(A) == jplan_kind(jA) == "bsr"
     X = np.random.default_rng(8).standard_normal(
         (j.num_cols, 4)).astype(np.float32)
@@ -190,7 +190,8 @@ def test_bsr_plan_alpha_beta_and_jax_plan_kind():
     _, bound, _ = _row_bound(A, X)
     assert np.all(np.abs(Y - Yj) <= 2 * bound + 4 * U * np.abs(Yj))
     # AUTO never plans BSR (the JAX fill gate waits for a card A/B)
-    assert plan_kind(plan_matrix(_port(j), "auto", L=16, device="cpu")) \
+    assert plan_kind(plan_matrix(_port(j), "auto", L=16, device="cpu",
+                                 dtype=np.float32)) \
         != "bsr"
 
 
@@ -214,7 +215,7 @@ def test_bsr_carry_gives_jax_y(dtype):
 
 def test_k8_wrapper_rejects_bad_operands():
     j = jgen.make_block_random(4, 2).to_csr()
-    A = plan_matrix(_port(j), "bsr", device="cpu")
+    A = plan_matrix(_port(j), "bsr", device="cpu", dtype=np.float32)
     X = torch.zeros(j.num_cols, 2)
     with pytest.raises(TypeError):
         bsr.bsr_matmat(A, X.double())

@@ -73,7 +73,7 @@ def _pair(name, L):
     jmake, pmake, strategy, _ = FIXTURES[name]
     jcsr, pcsr = jmake().to_csr(), pmake().to_csr()
     return (jplan(jcsr, strategy, dtype=np.float32, L=L),
-            plan_matrix(pcsr, strategy, L=L, device="cpu"),
+            plan_matrix(pcsr, strategy, L=L, device="cpu", dtype=np.float32),
             pcsr.to_scipy().astype(np.float64))
 
 
@@ -171,7 +171,7 @@ def test_entry_cg_step_matches_jax():
     step, (X0, B, P0, rs0) = __graft_entry__.entry()
     Xj, Rj, Pj, rsj = (np.asarray(a) for a in step(X0, B, P0, rs0))
     csr = gen.make_laplacian_grid3d(16, dtype=np.float32).to_csr()
-    A = plan_matrix(csr, "auto", L=16, device="cpu")
+    A = plan_matrix(csr, "auto", L=16, device="cpu", dtype=np.float32)
     assert plan_kind(A) == "dia"
     Bt = torch.from_numpy(np.array(B))
     X, R, P = torch.zeros_like(Bt), Bt, Bt
@@ -255,7 +255,7 @@ def test_cg_solve_matvec_matches_jax():
     b = np.random.default_rng(41).standard_normal(j.num_rows).astype(
         np.float32)
     jA = jplan(j, "reference", dtype=np.float32)
-    A = plan_matrix(c, "merge", device="cpu")
+    A = plan_matrix(c, "merge", device="cpu", dtype=np.float32)
     rj = jcg_solve(None, b, matvec=lambda v: jspmv(jA, v),
                    record_history=True, max_iters=500)
     r = cg_solve(None, torch.from_numpy(b), matvec=lambda v: spmv(A, v),
@@ -272,8 +272,9 @@ def test_cg_solve_multi_matmat_matches_jax(reorder):
     j, c = _scrambled()
     B = _B(j.num_rows, 3, seed=42)
     jA = jplan(j, "reference", dtype=np.float32)
-    M = plan_matrix(c, "merge", L=3, device="cpu")
-    A = plan_matrix(c, "merge", L=3, reorder=reorder, device="cpu")
+    M = plan_matrix(c, "merge", L=3, device="cpu", dtype=np.float32)
+    A = plan_matrix(c, "merge", L=3, reorder=reorder, device="cpu",
+                    dtype=np.float32)
     rj = jcg_solve_multi(jplan(j, "reference", dtype=np.float32,
                                reorder=reorder), B,
                          matmat=lambda V: jspmm(jA, V), max_iters=500)

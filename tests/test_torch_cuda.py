@@ -45,6 +45,7 @@ from tpusparse_torch.kernels import (
 )
 from tpusparse_torch.ops.reference import csr_matmat, csr_matvec
 from test_torch_dia_masked_tiles import K1_CASES, emulate_k1
+from test_torch_dia_planes_tiles import K5_CASES, emulate_k5
 from test_torch_merge_spmm_tiles import K3_CASES, emulate_k3, integer_valued
 
 pytestmark = pytest.mark.cuda
@@ -68,7 +69,7 @@ def _x(n, seed, dev, shape=None):
 @pytest.mark.parametrize("L", [1, 4])
 def test_k1_matches_plain(cuda, L):
     csr = gen.make_laplacian_grid3d(16).to_csr()
-    D = plan_matrix(csr, "auto", device=cuda).dia
+    D = plan_matrix(csr, "auto", device=cuda, dtype=np.float32).dia
     XT = _x(None, L, cuda, (L, csr.num_cols))
     before = dia_stream.LAUNCHES
     Y = dia_stream.spmm_dia_stream_t(D, XT)
@@ -298,9 +299,11 @@ def test_k3_takes_x_at_any_alignment(cuda, dtype):
 def test_cg_on_card_matches_cpu(cuda):
     csr = gen.make_laplacian_grid3d(12).to_csr()
     b = _x(csr.num_rows, 1, "cpu")
-    r_cpu = cg_solve(plan_matrix(csr, "auto", device="cpu"), b)
+    r_cpu = cg_solve(plan_matrix(csr, "auto", device="cpu",
+                                 dtype=np.float32), b)
     before = dia_stream.LAUNCHES
-    r = cg_solve(plan_matrix(csr, "auto", device=cuda), b.to(cuda))
+    r = cg_solve(plan_matrix(csr, "auto", device=cuda,
+                             dtype=np.float32), b.to(cuda))
     assert dia_stream.LAUNCHES > before
     assert r.converged and abs(r.iterations - r_cpu.iterations) <= 1
     assert torch.linalg.norm(r.x.cpu() - r_cpu.x) \
@@ -309,12 +312,12 @@ def test_cg_on_card_matches_cpu(cuda):
 
 def test_no_fallback_on_cuda_tensors(cuda):
     csr = gen.make_laplacian_grid2d(4).to_csr()
-    A = plan_matrix(csr, "auto", device=cuda)
+    A = plan_matrix(csr, "auto", device=cuda, dtype=np.float32)
     # mixed types: float64 XT on a float32 operand
     with pytest.raises(TypeError):
         dia_stream.spmm_dia_stream_t(A.dia, torch.zeros(1, 16, device=cuda,
                                                         dtype=torch.float64))
-    M = plan_matrix(csr, "merge", device=cuda)
+    M = plan_matrix(csr, "merge", device=cuda, dtype=np.float32)
     with pytest.raises(ValueError, match="same device"):
         merge_spmv.merge_matvec(M, torch.zeros(16))
     y = spmv(M, torch.ones(16, device=cuda))
@@ -358,7 +361,7 @@ def test_spmm_kernels_match_plain_and_float64(cuda, name, kernel, L):
     ("rmat-12", CASES["rmat-12"], "merge")])
 def test_auto_spmm_on_card_matches_float64(cuda, name, make, kind):
     csr = make()
-    P = plan_matrix(csr, "auto", L=8, device=cuda)
+    P = plan_matrix(csr, "auto", L=8, device=cuda, dtype=np.float32)
     assert plan_kind(P) == kind
     X = _x(None, 3, cuda, (csr.num_cols, 8))
     Y = spmm(P, X)
@@ -377,10 +380,12 @@ def test_cg_multi_on_card_matches_cpu(cuda):
     B = _x(None, 2, "cpu", (csr.num_rows, 4))
     for strategy, module in (("auto", dia_stream), ("merge", spmm_merge),
                              ("row_split", ell_spmm)):
-        r_cpu = cg_solve_multi(plan_matrix(csr, strategy, L=4, device="cpu"),
+        r_cpu = cg_solve_multi(plan_matrix(csr, strategy, L=4, device="cpu",
+                                           dtype=np.float32),
                                B)
         before = module.LAUNCHES
-        r = cg_solve_multi(plan_matrix(csr, strategy, L=4, device=cuda),
+        r = cg_solve_multi(plan_matrix(csr, strategy, L=4, device=cuda,
+                                       dtype=np.float32),
                            B.to(cuda))
         assert module.LAUNCHES > before
         assert bool(r.converged.all()) and bool(r_cpu.converged.all())
@@ -517,13 +522,14 @@ def test_k5_no_fallback_on_cuda_tensors(cuda):
         dia_stream.spmm_dia_planes_t(D, torch.zeros(1, n))
     before = dia_stream.PLANES_LAUNCHES
     y = spmv(plan_matrix(gen.make_variable_stencil(12).to_csr(), "auto",
-                         device=cuda), torch.ones(n, device=cuda))
+                         device=cuda,
+                         dtype=np.float32), torch.ones(n, device=cuda))
     assert y.is_cuda and dia_stream.PLANES_LAUNCHES == before + 1
 
 
 def test_k5_equals_k1_on_constant_band(cuda):
     csr = gen.make_laplacian_grid3d(16).to_csr()
-    D1 = plan_matrix(csr, "auto", device=cuda).dia
+    D1 = plan_matrix(csr, "auto", device=cuda, dtype=np.float32).dia
     D5 = _planes(csr, cuda)
     XT = _x(None, 4, cuda, (4, csr.num_cols))
     assert torch.equal(dia_stream.spmm_dia_stream_t(D1, XT),
@@ -535,7 +541,7 @@ def test_variable_band_solvers_on_card_match_cpu(cuda):
                                     shift=1.0).to_csr()
     b = _x(csr.num_rows, 4, "cpu")
     B = _x(None, 5, "cpu", (csr.num_rows, 4))
-    plans = {dev: (plan_matrix(csr, "auto", device=dev),
+    plans = {dev: (plan_matrix(csr, "auto", device=dev, dtype=np.float32),
                    plan_dia_bf16(csr, device=dev)) for dev in ("cpu", cuda)}
     before = dia_stream.PLANES_LAUNCHES
     runs = {dev: (cg_solve(A32, b.to(dev)), cg_solve_multi(A32, B.to(dev)),
@@ -607,8 +613,8 @@ def test_k5d_matches_plain_bitwise(cuda, name, L):
 
 @pytest.mark.parametrize("L", [1, 16])
 def test_k5d_at_64_planes(cuda, L):
-    """64 float64 planes stage a 64 KiB coefficient tile: past the
-    default 48 KiB of dynamic shared memory a launch gets."""
+    """64 float64 planes, K5's limit (the design before the row runs
+    staged them in a 64 KiB shared-memory tile)."""
     A = _band(600, 640, list(range(-40, 24)), 9)
     host, rest = partition_dia(A, np.arange(-40, 24))
     assert rest.nnz == 0
@@ -681,7 +687,7 @@ def test_fp64_solvers_on_card_match_cpu(cuda):
     out = {}
     for dev in ("cpu", cuda):
         A64 = plan_matrix(csr, "auto", dtype=np.float64, device=dev)
-        A32 = plan_matrix(csr, "auto", device=dev)
+        A32 = plan_matrix(csr, "auto", device=dev, dtype=np.float32)
         out[dev] = (cg_solve(A64, b.to(dev), tolerance=1e-10),
                     cg_solve_multi(A64, B.to(dev), tolerance=1e-10),
                     cg_solve_refined(A32, A64, b.to(dev)),
@@ -819,15 +825,17 @@ def test_preconditioned_solvers_on_card_match_cpu(cuda):
         <= 1e-10 * np.abs(M_cpu.values).max()
     out = {}
     for dev in ("cpu", cuda):
-        A = plan_matrix(csr, "auto", reorder="rcm", L=4, device=dev)
-        A0 = plan_matrix(csr, "auto", L=4, device=dev)
+        A = plan_matrix(csr, "auto", reorder="rcm", L=4, device=dev,
+                        dtype=np.float32)
+        A0 = plan_matrix(csr, "auto", L=4, device=dev, dtype=np.float32)
         before = permute.LAUNCHES
         out[dev] = (
             pcg_solve_multi(A0, B.to(dev), make_ic0_preconditioner(
                 Lf, num_rhs=4, dtype=np.float32, device=dev)),
             pcg_solve_multi(A0, B.to(dev), make_exact_ic0_preconditioner(
                 Lf, device=dev)),
-            spai_cg_solve_multi(A0, plan_matrix(M, "auto", L=4, device=dev),
+            spai_cg_solve_multi(A0, plan_matrix(M, "auto", L=4, device=dev,
+                                                dtype=np.float32),
                                 B.to(dev)),
             cg_solve_multi(A, B.to(dev)),
             # in the permuted space, with the reordered matrix's factor,
@@ -863,7 +871,8 @@ NMAJOR_CASES = {
 def test_k7_matches_plain_and_k1_bitwise(cuda, name, L):
     from tpusparse_torch.kernels import dia_nmajor
 
-    A = plan_matrix(NMAJOR_CASES[name](), "nmajor", L=L, device=cuda)
+    A = plan_matrix(NMAJOR_CASES[name](), "nmajor", L=L, device=cuda,
+                    dtype=np.float32)
     D = A.dia
     X = _x(None, L, cuda, (D.num_cols, L))
     before = dia_nmajor.LAUNCHES
@@ -882,7 +891,8 @@ def test_k7_matches_plain_and_k1_bitwise(cuda, name, L):
 def test_k7_refuses_wrong_operands(cuda):
     from tpusparse_torch.kernels import dia_nmajor
 
-    A = plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=4, device=cuda)
+    A = plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=4, device=cuda,
+                    dtype=np.float32)
     n = A.dia.num_rows
     with pytest.raises(ValueError, match="L <= 4"):
         dia_nmajor.nmajor_matmat(A.dia, torch.zeros(n, 5, device=cuda))
@@ -894,7 +904,8 @@ def test_k7_refuses_wrong_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         dia_nmajor.nmajor_matmat(A.dia, torch.zeros(2, n, device=cuda).T)
     with pytest.raises(ValueError):
-        plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=1, device=cuda)
+        plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=1, device=cuda,
+                    dtype=np.float32)
 
 
 def test_new_kernels_do_not_fall_back_without_the_library(cuda,
@@ -903,9 +914,10 @@ def test_new_kernels_do_not_fall_back_without_the_library(cuda,
     load, K7, K8 and K8d raise instead of running their plain versions."""
     from tpusparse_torch.kernels import _build, bsr, dia_nmajor
 
-    A = plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=4, device=cuda)
+    A = plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=4, device=cuda,
+                    dtype=np.float32)
     Bf = plan_matrix(gen.make_block_random(4, 2).to_csr(), "bsr",
-                     device=cuda)
+                     device=cuda, dtype=np.float32)
     Bd = plan_matrix(gen.make_block_random(4, 2).to_csr(), "bsr",
                      dtype=np.float64, device=cuda)
 
@@ -996,3 +1008,104 @@ def test_k8_other_blocks_and_wide_panels(cuda, blocks, L, dtype):
                                                                   dtype)
     tdt = torch.float32 if dtype == np.float32 else torch.float64
     _check_k8(A, _x(None, 12, cuda, (A.num_cols, L)).to(tdt))
+
+
+def _k5_operands(name, plane_dtype, L, dev, shift=0):
+    """(D on dev, XT on dev): XT is a contiguous view ``shift`` elements
+    into a fresh buffer."""
+    D = K5_CASES[name](plane_dtype)
+    D = dataclasses.replace(D, data=D.data.to(dev))
+    dtype = torch.float64 if plane_dtype == torch.float64 else torch.float32
+    x = np.random.default_rng(50 + L).standard_normal((L, D.num_cols))
+    buf = torch.zeros(L * D.num_cols + shift, dtype=dtype, device=dev)
+    XT = buf[shift:].view(L, D.num_cols)
+    XT.copy_(torch.from_numpy(x))
+    return D, XT
+
+
+@pytest.mark.parametrize("L", [1, 3, 16, 33])
+@pytest.mark.parametrize("plane_dtype", [torch.float32, torch.bfloat16,
+                                         torch.float64],
+                         ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("name", list(K5_CASES))
+def test_k5_and_k5d_equal_their_emulation(cuda, name, plane_dtype, L):
+    """K5 (K5d with float64 planes) equals ``emulate_k5`` and its plain
+    version bit for bit on var-7, var-27, rectangular bands, offsets
+    past n, K = 0, K = 64 (no plane tile at L > 1 past 227 KiB) and n
+    below a row block, on XT aligned to 16 bytes and one element off;
+    one launch a call (none at K = 0)."""
+    f64 = plane_dtype == torch.float64
+    counter = "PLANES_LAUNCHES_F64" if f64 else "PLANES_LAUNCHES"
+    for shift in (0, 1):
+        D, XT = _k5_operands(name, plane_dtype, L, cuda, shift)
+        before = getattr(dia_stream, counter)
+        Y = dia_stream.spmm_dia_planes_t(D, XT)
+        torch.cuda.synchronize()
+        assert getattr(dia_stream, counter) == before + (
+            len(D.offsets) > 0)
+        assert Y.dtype == XT.dtype and Y.shape == (L, D.num_rows)
+        assert torch.equal(Y, dia_stream.spmm_dia_planes_plain(D, XT))
+        np.testing.assert_array_equal(
+            Y.cpu().numpy(),
+            emulate_k5(dataclasses.replace(D, data=D.data.cpu()),
+                       XT.cpu().numpy()))
+
+
+REFERENCE_CASES = {**CASES,
+                   "Trefethen_200": PLANE_CASES["Trefethen_200"],
+                   "lap3d-24": lambda: gen.make_laplacian_grid3d(
+                       24).to_csr()}
+
+
+@pytest.mark.parametrize("L", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(REFERENCE_CASES))
+def test_reference_product_repeats_the_cpu_bits(cuda, name, dtype, L):
+    """The reference product (KR, KRd in float64) adds each row in CSR
+    order: two calls on the card give equal bits, and they are the CPU
+    plain version's; through ``strategy='reference'`` too."""
+    from tpusparse_torch.kernels import csr_reference
+
+    csr = REFERENCE_CASES[name]()
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    C = plan_matrix(csr, "reference", dtype=np_dtype, device=cuda)
+    Ch = plan_matrix(csr, "reference", dtype=np_dtype, device="cpu")
+    X = torch.from_numpy(np.random.default_rng(60 + L).standard_normal(
+        (csr.num_cols, L))).to(dtype)
+    args = (C.num_rows, C.row_offsets, C.col_indices, C.values)
+    hargs = (Ch.num_rows, Ch.row_offsets, Ch.col_indices, Ch.values)
+    counter = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    before = getattr(csr_reference, counter)
+    Y1 = csr_matmat(*args, X.to(cuda))
+    Y2 = spmm(C, X.to(cuda))
+    y1 = csr_matvec(*args, X[:, 0].to(cuda))
+    y2 = spmv(C, X[:, 0].to(cuda))
+    torch.cuda.synchronize()
+    assert getattr(csr_reference, counter) == before + 4 * (
+        csr.num_rows > 0)
+    want = csr_matmat(*hargs, X)
+    assert torch.equal(Y1.cpu(), want) and torch.equal(Y2.cpu(), want)
+    want1 = csr_matvec(*hargs, X[:, 0])
+    assert torch.equal(y1.cpu(), want1) and torch.equal(y2.cpu(), want1)
+
+
+def test_reference_product_does_not_fall_back(cuda, monkeypatch):
+    """A CUDA tensor launches KR or raises: with no library to load the
+    reference product raises, and a value type KR does not take raises
+    TypeError."""
+    from tpusparse_torch.kernels import _build
+
+    C = plan_matrix(CASES["wheel-5000"](), "reference", dtype=np.float32,
+                    device=cuda)
+    args = (C.num_rows, C.row_offsets, C.col_indices)
+    with pytest.raises(TypeError):
+        csr_matvec(*args, C.values.half(), torch.ones(C.num_cols,
+                                                      device=cuda))
+
+    def missing():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "library", missing)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        spmv(C, torch.ones(C.num_cols, device=cuda))

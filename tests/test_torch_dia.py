@@ -98,7 +98,7 @@ def test_mask_words_equal_jax_plan(name):
     host, rest = partition_dia(csr, select_diagonals(csr))
     assert rest.nnz == 0
     np.testing.assert_array_equal(dia_stream.mask_words(host), jwords)
-    A = plan_matrix(csr, "auto", device="cpu")
+    A = plan_matrix(csr, "auto", device="cpu", dtype=np.float32)
     assert A.dia.offsets == tuple(Dj.offsets)
     np.testing.assert_array_equal(A.dia.mask.numpy().view(np.uint32), jwords)
     np.testing.assert_array_equal(A.dia.vals.numpy(),
@@ -110,7 +110,7 @@ def test_mask_words_equal_jax_plan(name):
 def test_own_plan_equals_carried_plan(name):
     Dj, _ = _jax_side(name)
     csr = FIXTURES[name][1]().to_csr()
-    A = plan_matrix(csr, "auto", device="cpu")
+    A = plan_matrix(csr, "auto", device="cpu", dtype=np.float32)
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         csr.num_cols).astype(np.float32))
     y_carried = dia_stream.spmv_dia_stream(_carried(Dj), x)
@@ -119,7 +119,7 @@ def test_own_plan_equals_carried_plan(name):
 
 def test_bit31_is_used_and_read():
     csr = _band32(CooMatrix).to_csr()
-    A = plan_matrix(csr, "auto", device="cpu")
+    A = plan_matrix(csr, "auto", device="cpu", dtype=np.float32)
     words = A.dia.mask.numpy().view(np.uint32)
     assert len(A.dia.offsets) == 32 and np.any(words >> 31)
     x = torch.zeros(csr.num_cols)
@@ -130,7 +130,7 @@ def test_bit31_is_used_and_read():
 
 def test_out_of_range_neighbours_read_zero():
     csr = gen.make_laplacian_grid2d(4).to_csr()   # offsets -4 -1 0 1 4
-    A = plan_matrix(csr, "auto", device="cpu")
+    A = plan_matrix(csr, "auto", device="cpu", dtype=np.float32)
     y = spmv(A, torch.ones(csr.num_cols))
     np.testing.assert_array_equal(y.numpy(), csr.to_scipy() @ np.ones(16))
     # x[4] = inf: row 3 reaches column 4 through offset +1 with a zero
@@ -144,7 +144,7 @@ def test_out_of_range_neighbours_read_zero():
 
 def test_alpha_beta():
     csr = gen.make_laplacian_grid2d(5).to_csr()
-    A = plan_matrix(csr, "auto", device="cpu")
+    A = plan_matrix(csr, "auto", device="cpu", dtype=np.float32)
     x = torch.linspace(-1, 1, csr.num_cols)
     y0 = torch.ones(csr.num_rows)
     np.testing.assert_allclose(
@@ -154,7 +154,7 @@ def test_alpha_beta():
 
 def test_wrapper_rejects_bad_operands():
     csr = gen.make_laplacian_grid2d(4).to_csr()
-    D = plan_matrix(csr, "auto", device="cpu").dia
+    D = plan_matrix(csr, "auto", device="cpu", dtype=np.float32).dia
     # mixed types: float64 XT on a float32 operand
     with pytest.raises(TypeError):
         dia_stream.spmm_dia_stream_t(D, torch.zeros(1, 16,

@@ -182,7 +182,10 @@ def test_emulated_k1_at_every_misalignment(name, dtype):
 
 
 def _constants(path, names):
-    src = (ROOT / "tpusparse_torch" / "csrc" / path).read_text()
+    """The named constants of a csrc source and of the DIA kernels' shared
+    header (``dia_rows.cuh``)."""
+    csrc = ROOT / "tpusparse_torch" / "csrc"
+    src = (csrc / path).read_text() + (csrc / "dia_rows.cuh").read_text()
     return {k: int(re.search(rf"constexpr int {k} = (\d+);", src)[1])
             for k in names}
 

@@ -241,7 +241,7 @@ def test_plans_and_spmv_match_jax(name, kind):
     jcsr, pcsr = FIXTURES[name]()
     strategy = "dia" if name.startswith("rect") else "auto"
     J = jplan(jcsr, strategy, dtype=np.float32)
-    P = plan_matrix(pcsr, strategy, device="cpu")
+    P = plan_matrix(pcsr, strategy, device="cpu", dtype=np.float32)
     assert plan_kind(P) == jplan_kind(J) == kind
     assert plan_semantics(P) == jplan_semantics(J) == "f32"
     assert isinstance(P.dia, dia.DiaDevice)
@@ -318,12 +318,13 @@ def test_k5_equals_k1_on_constant_band(L):
 
 def test_constant_band_plans_k1_and_wide_band_plans_k5():
     lap = gen.make_laplacian_grid3d(6).to_csr()
-    assert isinstance(plan_matrix(lap, "auto", device="cpu").dia,
+    assert isinstance(plan_matrix(lap, "auto", device="cpu",
+                                  dtype=np.float32).dia,
                       dia_stream.DiaStreamDevice)
     # 40 constant diagonals: past the 32-bit mask, so value planes
     wide = _from_scipy(abs(_band(400, 400, list(range(-20, 20)), 4))
                        .sign())[1]
-    P = plan_matrix(wide, "auto", device="cpu")
+    P = plan_matrix(wide, "auto", device="cpu", dtype=np.float32)
     assert isinstance(P.dia, dia.DiaDevice) and len(P.dia.offsets) == 40
     x = torch.from_numpy(_xt(1, 400)[0])
     np.testing.assert_allclose(spmv(P, x).numpy(),
@@ -444,7 +445,7 @@ def _cg_pair(name):
               dtype=np.float32)
     jcsr = jgen.make_variable_stencil(12, **kw).to_csr()
     pcsr = gen.make_variable_stencil(12, **kw).to_csr()
-    P = plan_matrix(pcsr, "dia", device="cpu")
+    P = plan_matrix(pcsr, "dia", device="cpu", dtype=np.float32)
     assert isinstance(P.dia, dia.DiaDevice) and P.rest is None
     return (jplan(jcsr, "dia", dtype=np.float32), P,
             pcsr.to_scipy().astype(np.float64), history)

@@ -542,7 +542,8 @@ def test_cg_solve_refined_matches_jax(name):
     b = np.random.default_rng(15).standard_normal(port.num_rows)
     rj = jrefined(jplan(jcsr, dtype=np.float32), _jax_reference(name),
                   jnp.asarray(b))
-    r = cg_solve_refined(plan_matrix(port, "auto", device="cpu"),
+    r = cg_solve_refined(plan_matrix(port, "auto", device="cpu",
+                                     dtype=np.float32),
                          plan_matrix(port, "auto", dtype=np.float64,
                                      device="cpu"),
                          torch.from_numpy(b))
@@ -567,7 +568,7 @@ def test_cg_solve_multi_refined_matches_jax():
     rj = jmulti_refined(jplan(jcsr, dtype=np.float32, L=8),
                         jplan(jcsr, dtype=np.float64, L=8), jnp.asarray(B))
     r = cg_solve_multi_refined(
-        plan_matrix(port, "auto", L=8, device="cpu"),
+        plan_matrix(port, "auto", L=8, device="cpu", dtype=np.float32),
         plan_matrix(port, "auto", dtype=np.float64, L=8, device="cpu"),
         torch.from_numpy(B))
     assert r.x.shape == (port.num_rows, 8) and r.residual.shape == (8,)
@@ -582,7 +583,7 @@ def test_refinement_semantics_match_jax():
     k > 0); one allowed refinement stops there with the residual
     recomputed after the correction."""
     port, jcsr, _ = _csr("lap3d-10")
-    A32 = plan_matrix(port, "auto", device="cpu")
+    A32 = plan_matrix(port, "auto", device="cpu", dtype=np.float32)
     A64 = plan_matrix(port, "auto", dtype=np.float64, device="cpu")
     J32, J64 = jplan(jcsr, dtype=np.float32), _jax_reference("lap3d-10")
     z = np.zeros(port.num_rows)

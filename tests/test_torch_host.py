@@ -205,11 +205,13 @@ PLAN_KINDS = [
                          ids=[p[0] for p in PLAN_KINDS])
 def test_auto_plan_kind(name, make, kind):
     csr = make().to_csr()
-    A = plan_matrix(csr, "auto", device="cpu")
+    A = plan_matrix(csr, "auto", device="cpu", dtype=np.float32)
     assert plan_kind(A) == kind
     assert plan_semantics(A) == "f32"
-    assert plan_kind(plan_matrix(csr, "merge", device="cpu")) == "merge"
-    assert plan_kind(plan_matrix(csr, "reference", device="cpu")) \
+    assert plan_kind(plan_matrix(csr, "merge", device="cpu",
+                                 dtype=np.float32)) == "merge"
+    assert plan_kind(plan_matrix(csr, "reference", device="cpu",
+                                 dtype=np.float32)) \
         == "reference"
 
 
@@ -240,8 +242,9 @@ def test_plan_matrix_names_roadmap_item(name, kw, kind):
     csr = gen.make_laplacian_grid2d(6).to_csr()
     if kind is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plan_matrix(csr, device="cpu", **kw)
+            plan_matrix(csr, device="cpu", **{"dtype": np.float32, **kw})
     else:
+        kw = {"dtype": np.float32, **kw}
         assert plan_kind(plan_matrix(csr, device="cpu", **kw)) == kind
 
 
@@ -250,21 +253,22 @@ def test_nmajor_single_rhs_raises_as_in_jax():
     JAX package's does, instead of handing back another family."""
     csr = gen.make_laplacian_grid2d(6).to_csr()
     with pytest.raises(ValueError, match="L >= 2"):
-        plan_matrix(csr, "nmajor", device="cpu")
+        plan_matrix(csr, "nmajor", device="cpu", dtype=np.float32)
 
 
 def test_explicit_dia_on_variable_band_names_b2():
     """Explicit 'dia' on a variable band plans the value-plane operand
     of K5, the port of B2; a constant band stays masked (K1)."""
     csr = gen.make_variable_stencil(5).to_csr()
-    A = plan_matrix(csr, "dia", device="cpu")
+    A = plan_matrix(csr, "dia", device="cpu", dtype=np.float32)
     assert plan_kind(A) == "dia" and isinstance(A.dia, dia.DiaDevice)
     assert A.rest is None and A.dia.data.dtype == torch.float32
     host, _ = dia.partition_dia(csr, dia.select_diagonals(csr))
     np.testing.assert_array_equal(A.dia.data.numpy(),
                                   host.data.astype(np.float32))
     lap = gen.make_laplacian_grid3d(5).to_csr()
-    assert not isinstance(plan_matrix(lap, "dia", device="cpu").dia,
+    assert not isinstance(plan_matrix(lap, "dia", device="cpu",
+                                      dtype=np.float32).dia,
                           dia.DiaDevice)
 
 

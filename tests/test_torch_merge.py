@@ -101,7 +101,8 @@ def test_k2_plain_edge_cases(name):
     csr = EDGE_CASES[name]
     x = np.random.default_rng(2).standard_normal(csr.num_cols).astype(
         np.float32)
-    y = spmv(plan_matrix(csr, "merge", device="cpu"), torch.from_numpy(x))
+    y = spmv(plan_matrix(csr, "merge", device="cpu",
+                         dtype=np.float32), torch.from_numpy(x))
     exact, ax, nnz_i = _bounds(csr, x)
     assert y.shape == (csr.num_rows,)
     assert np.all(np.abs(y.numpy() - exact) <= (nnz_i + 2) * U * ax)
@@ -111,7 +112,7 @@ def test_own_merge_plan_equals_carried():
     csr = jgen.make_rmat(9).to_csr()
     port = plan_matrix(CsrMatrix(csr.num_rows, csr.num_cols, csr.row_offsets,
                                  csr.col_indices, csr.values), "merge",
-                       device="cpu")
+                       device="cpu", dtype=np.float32)
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         csr.num_cols).astype(np.float32))
     np.testing.assert_array_equal(spmv(port, x).numpy(),

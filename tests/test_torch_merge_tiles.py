@@ -145,7 +145,7 @@ def test_every_merge_plan_carries_its_tiles():
     j = jgen.make_rmat(9).to_csr()
     host = CsrMatrix(j.num_rows, j.num_cols, np.asarray(j.row_offsets),
                      np.asarray(j.col_indices), np.asarray(j.values))
-    own = plan_matrix(host, "merge", device="cpu")
+    own = plan_matrix(host, "merge", device="cpu", dtype=np.float32)
     carried = plan_from_arrays("csr", {
         "row_offsets": np.asarray(j.row_offsets),
         "col_indices": np.asarray(j.col_indices),
@@ -155,13 +155,14 @@ def test_every_merge_plan_carries_its_tiles():
         assert P.tile_coords.dtype == torch.int32
         np.testing.assert_array_equal(P.tile_coords.numpy(), want)
     wheel = gen.make_wheel(3000).to_csr()
-    H = plan_matrix(wheel, "auto", device="cpu")
+    H = plan_matrix(wheel, "auto", device="cpu", dtype=np.float32)
     assert isinstance(H, HybridPlan) and H.rest is not None
     np.testing.assert_array_equal(
         H.rest.tile_coords.numpy(),
         merge_spmv.merge_tile_coords(H.rest.row_offsets.numpy(),
                                      H.rest.nnz))
-    R = plan_matrix(host, "merge", reorder="rcm", device="cpu")
+    R = plan_matrix(host, "merge", reorder="rcm", device="cpu",
+                    dtype=np.float32)
     assert isinstance(R, ReorderedPlan)
     np.testing.assert_array_equal(
         R.inner.tile_coords.numpy(),

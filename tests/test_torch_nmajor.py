@@ -121,7 +121,7 @@ def test_nmajor_plan_spmm_and_spmv_match_jax(case, L):
     j = (FIXTURES["lap2d-17"]().to_csr() if case == "pure"
          else _band_plus_noise())
     jA = jplan(j, "nmajor", L=L, dtype=np.float32)
-    A = plan_matrix(_port(j), "nmajor", L=L, device="cpu")
+    A = plan_matrix(_port(j), "nmajor", L=L, device="cpu", dtype=np.float32)
     assert plan_kind(A) == jplan_kind(jA)
     assert plan_kind(A) == ("dia_nmajor" if case == "pure"
                             else "hybrid_dia_nmajor")
@@ -192,13 +192,14 @@ def test_nmajor_plan_errors_match_jax(case, make, kw):
     with pytest.raises(ValueError):
         jplan(j, "nmajor", **kw)
     with pytest.raises(ValueError):
-        plan_matrix(_port(j), "nmajor", device="cpu", **kw)
+        plan_matrix(_port(j), "nmajor", device="cpu",
+                    **{"dtype": np.float32, **kw})
 
 
 def test_more_columns_than_the_plan_raise_as_in_jax():
     j = FIXTURES["lap2d-17"]().to_csr()
     jA = jplan(j, "nmajor", L=3, dtype=np.float32)
-    A = plan_matrix(_port(j), "nmajor", L=3, device="cpu")
+    A = plan_matrix(_port(j), "nmajor", L=3, device="cpu", dtype=np.float32)
     X = _X(j.num_cols, 5)
     with pytest.raises(ValueError, match="L <= 4"):
         jspmm(jA, jnp.asarray(X))
@@ -222,7 +223,8 @@ def test_dia_nmajor_carry_gives_jax_y(L):
         "mask_g": np.asarray(jD.mask_g), "S": jD.S, "L": jD.L,
         "offsets": jD.offsets, "vals": jD.vals,
         "shape": (jD.num_rows, jD.num_cols)}, "cpu")
-    own = plan_matrix(_port(j), "nmajor", L=L, device="cpu").dia
+    own = plan_matrix(_port(j), "nmajor", L=L, device="cpu",
+                      dtype=np.float32).dia
     assert D.L == own.L and D.offsets == own.offsets
     assert torch.equal(D.band.mask, own.band.mask)
     assert torch.equal(D.band.vals, own.band.vals)
@@ -258,7 +260,7 @@ def test_cg_multi_on_nmajor_plan_matches_jax_interleaved(name, L):
     B = _X(j.num_rows, L, seed=20 + L)
     jres = jcg_multi(jplan(j, "nmajor", L=L, dtype=np.float32),
                      jnp.asarray(B))
-    A = plan_matrix(_port(j), "nmajor", L=L, device="cpu")
+    A = plan_matrix(_port(j), "nmajor", L=L, device="cpu", dtype=np.float32)
     before = dia_nmajor.LAUNCHES
     res = cg_solve_multi(A, torch.from_numpy(B))
     assert dia_nmajor.LAUNCHES == before      # the plain version on the CPU
@@ -282,7 +284,7 @@ def test_pcg_on_nmajor_plan_matches_jax_interleaved(L):
                       dtype=np.float32)
     jres = jpcg(jplan(j, "nmajor", L=L, dtype=np.float32), jnp.asarray(B),
                 jprec)
-    A = plan_matrix(_port(j), "nmajor", L=L, device="cpu")
+    A = plan_matrix(_port(j), "nmajor", L=L, device="cpu", dtype=np.float32)
     prec = make_ic0_preconditioner(_port(jL), sweeps=2, num_rhs=L,
                                    dtype=np.float32, device="cpu")
     res = pcg_solve_multi(A, torch.from_numpy(B), prec)
@@ -293,6 +295,6 @@ def test_nmajor_is_never_an_auto_choice():
     j = FIXTURES["lap3d-6"]().to_csr()
     for L in (1, 4, 32):
         assert plan_kind(plan_matrix(_port(j), "auto", L=L,
-                                     device="cpu")) == "dia"
+                                     device="cpu", dtype=np.float32)) == "dia"
         assert jplan_kind(jplan(j, "auto", L=L, dtype=np.float32)) \
             != "dia_nmajor"

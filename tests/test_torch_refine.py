@@ -53,7 +53,7 @@ def _plans(name):
     pcsr = gen.make_variable_stencil(width, **kw).to_csr()
     J = (jplan_dia_bf16(jcsr), jplan(jcsr, "dia", dtype=np.float32))
     P = (plan_dia_bf16(pcsr, device="cpu"),
-         plan_matrix(pcsr, "dia", device="cpu"))
+         plan_matrix(pcsr, "dia", device="cpu", dtype=np.float32))
     assert (plan_kind(P[0]), plan_kind(P[1])) == ("dia_bf16", "dia")
     return J, P, pcsr.to_scipy().astype(np.float32)
 

@@ -176,7 +176,8 @@ def test_reordered_spmv_spmm_match_jax(order):
     them)."""
     j = _scrambled(jgen.make_laplacian_grid2d(32).to_csr())
     c = _port(j)
-    A = plan_matrix(c, "merge", reorder=order, L=8, device="cpu")
+    A = plan_matrix(c, "merge", reorder=order, L=8, device="cpu",
+                    dtype=np.float32)
     JA = jplan(j, "reference", dtype=np.float32, L=8, reorder=order)
     assert isinstance(A, ReorderedPlan) and A.order == order
     assert plan_kind(A) == f"{order}+merge" and plan_semantics(A) == "f32"
@@ -257,7 +258,8 @@ def _jax_scores_natively() -> bool:
 def test_auto_agrees_with_jax_on_the_primary_gate(name):
     j = FIXTURES[name]()
     c = _port(j)
-    A = plan_matrix(c, "reference", reorder="auto", device="cpu")
+    A = plan_matrix(c, "reference", reorder="auto", device="cpu",
+                    dtype=np.float32)
     JA = jplan(j, "reference", dtype=np.float32, reorder="auto")
     port = A.order if isinstance(A, ReorderedPlan) else None
     jax_ = JA.order if isinstance(JA, jreorder.ReorderedPlan) else None
@@ -285,10 +287,11 @@ def test_plan_reorder_unsquare_and_empty_plan_unpermuted():
     empty = CsrMatrix(3, 3, np.zeros(4, np.int32), np.zeros(0, np.int32),
                       np.zeros(0))
     for c in (rect, empty):
-        assert not isinstance(plan_reorder(c, "merge", device="cpu"),
+        assert not isinstance(plan_reorder(c, "merge", device="cpu",
+                                           dtype=np.float32),
                               ReorderedPlan)
     with pytest.raises(ValueError):
-        plan_reorder(empty, order="nested", device="cpu")
+        plan_reorder(empty, order="nested", device="cpu", dtype=np.float32)
 
 
 def test_cg_iteration_parity_under_reorder():
@@ -304,9 +307,10 @@ def test_cg_iteration_parity_under_reorder():
     JA = jreorder.plan_reorder(j, strategy="merge", dtype=np.float32,
                                order="rcm")
     rj = jcg_solve(JA, jnp.asarray(b), max_iters=2000, tolerance=1e-5)
-    A = plan_reorder(c, "merge", order="rcm", device="cpu")
+    A = plan_reorder(c, "merge", order="rcm", device="cpu", dtype=np.float32)
     r = cg_solve(A, torch.from_numpy(b), max_iters=2000, tolerance=1e-5)
-    r0 = cg_solve(plan_matrix(c, "merge", device="cpu"), torch.from_numpy(b),
+    r0 = cg_solve(plan_matrix(c, "merge", device="cpu",
+                              dtype=np.float32), torch.from_numpy(b),
                   max_iters=2000, tolerance=1e-5)
     assert r.converged and abs(r.iterations - int(rj.iterations)) <= 1
     assert abs(r.iterations - r0.iterations) <= 1
@@ -325,7 +329,8 @@ def test_cg_multi_and_refined_on_reordered_plans():
     # the permutation argsort(p) restores the band: a reordered plan of
     # the scrambled matrix whose inner plan is pure masked DIA
     A = ReorderedPlan(c.num_rows, c.num_cols, c.nnz,
-                      plan_matrix(lap, "dia", L=4, device="cpu"),
+                      plan_matrix(lap, "dia", L=4, device="cpu",
+                                  dtype=np.float32),
                       permute.build_permute_plan(np.argsort(p), "cpu"),
                       permute.build_permute_plan(p, "cpu"))
     assert plan_kind(A) == "rcm+dia"
@@ -344,7 +349,8 @@ def test_cg_multi_and_refined_on_reordered_plans():
     y = spmv(Ab, x)
     assert y.dtype == torch.float32
     assert torch.equal(y, spmv(Ab.inner, x.float()[A.perm])[A.inv_perm])
-    A32 = plan_matrix(c, "merge", reorder="rcm", device="cpu")
+    A32 = plan_matrix(c, "merge", reorder="rcm", device="cpu",
+                      dtype=np.float32)
     A64 = plan_matrix(c, "merge", dtype=np.float64, reorder="rcm",
                       device="cpu")
     rr = cg_solve_refined(A32, A64, torch.from_numpy(B[:, 0]))

@@ -58,7 +58,7 @@ def _pair(name):
     jmake, pmake = FIXTURES[name][:2]
     jcsr, pcsr = jmake().to_csr(), pmake().to_csr()
     return (jplan(jcsr, "auto", dtype=np.float32),
-            plan_matrix(pcsr, "auto", device="cpu"),
+            plan_matrix(pcsr, "auto", device="cpu", dtype=np.float32),
             pcsr.to_scipy().astype(np.float64))
 
 
@@ -128,7 +128,7 @@ def test_cg_history_and_iteration_cap():
 
 def test_cg_on_merge_plan_matches_auto():
     pcsr = gen.make_laplacian_grid3d(12).to_csr()
-    M = plan_matrix(pcsr, "merge", device="cpu")
+    M = plan_matrix(pcsr, "merge", device="cpu", dtype=np.float32)
     _, P, A64 = _pair("lap3d-12")
     b = torch.from_numpy(_b(A64.shape[0]))
     r, rm = cg_solve(P, b), cg_solve(M, b)

@@ -119,7 +119,7 @@ def _hold(Y, Yj, pcsr, X):
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_k3_plain_matches_jax_merge(name, L):
     _, pcsr, X = _fixture(name)
-    A = plan_matrix(pcsr, "merge", L=L, device="cpu")
+    A = plan_matrix(pcsr, "merge", L=L, device="cpu", dtype=np.float32)
     assert plan_kind(A) == "merge"
     XL = np.ascontiguousarray(X[:, :L])
     Y = spmm_merge.spmm_merge_plain(A, torch.from_numpy(XL)).numpy()
@@ -130,7 +130,7 @@ def test_k3_plain_matches_jax_merge(name, L):
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_k4_plain_matches_jax_row_split(name, L):
     _, pcsr, X = _fixture(name)
-    A = plan_matrix(pcsr, "row_split", L=L, device="cpu")
+    A = plan_matrix(pcsr, "row_split", L=L, device="cpu", dtype=np.float32)
     assert plan_kind(A) == "row_split"
     XL = np.ascontiguousarray(X[:, :L])
     Y = ell_spmm.spmm_row_split_plain(A, torch.from_numpy(XL)).numpy()
@@ -159,11 +159,12 @@ def test_auto_spmm_matches_jax(name):
     merge product of the same X."""
     jcsr, pcsr, X = _fixture(name)
     for L in (2, 4, LMAX):
-        assert plan_kind(plan_matrix(pcsr, "auto", L=L, device="cpu")) \
+        assert plan_kind(plan_matrix(pcsr, "auto", L=L, device="cpu",
+                                     dtype=np.float32)) \
             == AUTO_KINDS[name]
     assert jplan_kind(jplan(jcsr, "auto", dtype=np.float32, L=LMAX)) \
         == AUTO_KINDS[name]
-    P = plan_matrix(pcsr, "auto", L=LMAX, device="cpu")
+    P = plan_matrix(pcsr, "auto", L=LMAX, device="cpu", dtype=np.float32)
     Y = spmm(P, torch.from_numpy(X)).numpy()
     _hold(Y, _jax_merge(name), pcsr, X)
 
@@ -172,7 +173,7 @@ def test_auto_spmm_matches_jax(name):
 def test_row_split_aliases_plan_k4(strategy):
     pcsr = gen.make_laplacian_grid3d(6).to_csr()
     for L in (1, 4, 16):
-        A = plan_matrix(pcsr, strategy, L=L, device="cpu")
+        A = plan_matrix(pcsr, strategy, L=L, device="cpu", dtype=np.float32)
         assert plan_kind(A) == "row_split"
         assert isinstance(A, ell_spmm.RowSplitDevice)
 
@@ -182,7 +183,7 @@ def test_row_split_aliases_plan_k4(strategy):
 @pytest.mark.parametrize("name", ["wheel-600", "rmat_spd-10"])
 def test_spmm_alpha_beta_and_vector(name, strategy):
     _, pcsr, X = _fixture(name)
-    P = plan_matrix(pcsr, strategy, L=4, device="cpu")
+    P = plan_matrix(pcsr, strategy, L=4, device="cpu", dtype=np.float32)
     X4 = torch.from_numpy(np.ascontiguousarray(X[:, :4]))
     Y0 = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (pcsr.num_rows, 4)).astype(np.float32))
@@ -207,7 +208,8 @@ def test_spmm_alpha_beta_matches_jax():
         (pcsr.num_rows, LMAX)).astype(np.float32)
     Yj = np.asarray(jspmm(jplan(jcsr, "merge", dtype=np.float32, L=LMAX), X,
                           alpha=2.0, beta=-1.0, Y=Y0))
-    Y = spmm(plan_matrix(pcsr, "merge", L=LMAX, device="cpu"),
+    Y = spmm(plan_matrix(pcsr, "merge", L=LMAX, device="cpu",
+                         dtype=np.float32),
              torch.from_numpy(X), alpha=2.0, beta=-1.0,
              Y=torch.from_numpy(Y0)).numpy()
     _, ax, _ = _bounds(pcsr, X)
@@ -226,7 +228,8 @@ def test_carried_jax_row_split_plan_gives_port_y():
         "row_offsets": np.asarray(jcsr.row_offsets),
         "col_indices": np.asarray(jcsr.col_indices),
         "values": np.asarray(jcsr.values), "shape": jcsr.shape}, "cpu")
-    own = plan_matrix(pcsr, "row_split", L=LMAX, device="cpu")
+    own = plan_matrix(pcsr, "row_split", L=LMAX, device="cpu",
+                      dtype=np.float32)
     assert plan_kind(ell) == plan_kind(csr) == "row_split"
     for name in ("row_offsets", "col_indices", "values"):
         np.testing.assert_array_equal(getattr(ell, name).numpy(),
@@ -242,7 +245,7 @@ def test_spmm_wrappers_reject_bad_operands():
     pcsr = gen.make_laplacian_grid2d(4).to_csr()
     for strategy, matmat in (("merge", spmm_merge.merge_matmat),
                              ("row_split", ell_spmm.row_split_matmat)):
-        A = plan_matrix(pcsr, strategy, device="cpu")
+        A = plan_matrix(pcsr, strategy, device="cpu", dtype=np.float32)
         # mixed types: float64 X on a float32 operand
         with pytest.raises(TypeError):
             matmat(A, torch.zeros(16, 2, dtype=torch.float64))
@@ -259,4 +262,4 @@ def test_spmm_wrappers_reject_bad_operands():
         with pytest.raises(ValueError, match="same device"):
             matmat(meta, torch.zeros(16, 2))
     with pytest.raises(ValueError, match="L=0"):
-        plan_matrix(pcsr, "auto", L=0, device="cpu")
+        plan_matrix(pcsr, "auto", L=0, device="cpu", dtype=np.float32)

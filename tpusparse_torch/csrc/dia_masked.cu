@@ -32,7 +32,8 @@
 //     The shift is the same for every thread of a lane and plane, so the
 //     branch on it is uniform. Only a run that reaches past 0 or n takes
 //     guarded element loads. A row block's K shifted reads of x hit L1
-//     after the first.
+//     after the first. K5 (dia_planes.cu) reads and writes its rows with
+//     the same helpers (dia_rows.cuh).
 // The A/B on the card (scripts/torch_k1_ab.py, PERF.md §6) kept these two
 // steps and dropped windows of x in shared memory (cp.async, two
 // stages): the kernel was slower with them than with these loads.
@@ -48,52 +49,21 @@
 
 #include <cuda_runtime.h>
 
+#include "dia_rows.cuh"
 #include "rn_arith.cuh"
 
 namespace {
 
 constexpr int kMaxPlanes = 32;
 constexpr int kThreads = 256;
-// bytes of a vector load, and of a thread's run of rows
-constexpr int kVectorBytes = 16;
+// bytes of a thread's run of rows (vectors: dia_rows.cuh)
 constexpr int kRowBytes = 32;
+
+using namespace tps_dia;
 
 template <typename T>
 __host__ __device__ constexpr int rows_per_thread() {
   return kRowBytes / static_cast<int>(sizeof(T));
-}
-
-template <typename T>
-__host__ __device__ constexpr int vector_elems() {
-  return kVectorBytes / static_cast<int>(sizeof(T));
-}
-
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  using type = float4;
-};
-template <>
-struct Vec<double> {
-  using type = double2;
-};
-
-__device__ __forceinline__ void unpack(float4 v, float* b) {
-  b[0] = v.x;
-  b[1] = v.y;
-  b[2] = v.z;
-  b[3] = v.w;
-}
-__device__ __forceinline__ void unpack(double2 v, double* b) {
-  b[0] = v.x;
-  b[1] = v.y;
-}
-__device__ __forceinline__ float4 pack(const float* b) {
-  return make_float4(b[0], b[1], b[2], b[3]);
-}
-__device__ __forceinline__ double2 pack(const double* b) {
-  return make_double2(b[0], b[1]);
 }
 
 template <typename T>
@@ -102,54 +72,6 @@ struct DiaParams {
   T vals[kMaxPlanes];
   int K;
 };
-
-// Elements by which xl + i lies past a kVectorBytes boundary (i may be
-// negative: the address arithmetic wraps, the remainder does not).
-template <typename T>
-__device__ __forceinline__ int misalign(const T* xl, long long i) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(xl) +
-                      static_cast<uintptr_t>(i) * sizeof(T);
-  return static_cast<int>((a & (kVectorBytes - 1)) / sizeof(T));
-}
-
-// x[c + j] for j < R, 0 outside [0, n): 16-byte loads from xl + c - s
-// (s = c's misalignment) where the run lies inside [0, n), else guarded
-// element loads.
-template <typename T, int R>
-__device__ __forceinline__ void row_values(const T* __restrict__ xl,
-                                           long long n, long long c,
-                                           T (&x)[R]) {
-  constexpr int V = vector_elems<T>();
-  if constexpr (R % V == 0) {
-    const int s = misalign(xl, c);
-    if (c - s >= 0 && c - s + R + V <= n) {
-      using VT = typename Vec<T>::type;
-      constexpr int C = R / V;
-      const VT* xv = reinterpret_cast<const VT*>(xl + (c - s));
-      T buf[(C + 1) * V];
-#pragma unroll
-      for (int q = 0; q < C; ++q) unpack(__ldg(xv + q), buf + q * V);
-      if (s == 0) {
-#pragma unroll
-        for (int j = 0; j < R; ++j) x[j] = buf[j];
-        return;
-      }
-      unpack(__ldg(xv + C), buf + C * V);
-#pragma unroll
-      for (int t = 1; t < V; ++t) {
-        if (s == t) {
-#pragma unroll
-          for (int j = 0; j < R; ++j) x[j] = buf[j + t];
-        }
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    x[j] = (c + j >= 0 && c + j < n) ? __ldg(xl + c + j) : T(0);
-  }
-}
 
 template <int R>
 __device__ __forceinline__ void load_mask(const uint32_t* __restrict__ mask,
@@ -170,28 +92,6 @@ __device__ __forceinline__ void load_mask(const uint32_t* __restrict__ mask,
   }
 #pragma unroll
   for (int j = 0; j < R; ++j) w[j] = i0 + j < n ? __ldg(mask + i0 + j) : 0u;
-}
-
-// This thread's R outputs of lane yl: 16-byte stores where they lie in
-// [0, n) on a 16-byte boundary, else element by element.
-template <typename T, int R>
-__device__ __forceinline__ void store_rows(T* __restrict__ yl, long long n,
-                                           long long i0, const T (&acc)[R]) {
-  constexpr int V = vector_elems<T>();
-  if constexpr (R % V == 0) {
-    if (i0 + R <= n && reinterpret_cast<uintptr_t>(yl + i0) % 16 == 0) {
-      using VT = typename Vec<T>::type;
-#pragma unroll
-      for (int q = 0; q < R / V; ++q) {
-        reinterpret_cast<VT*>(yl + i0)[q] = pack(acc + q * V);
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    if (i0 + j < n) yl[i0 + j] = acc[j];
-  }
 }
 
 template <typename T>

@@ -19,16 +19,24 @@
 // Bound: bytes. At L = 1 a row reads K plane values (4 or 2 B each; 8 B in
 // K5d) against the x and y streams: a 27-point variable stencil reads
 // 108 B/row of f32 planes (54 B in bf16, 216 B in float64), for 2K flops.
-// One thread per row, neighbouring threads on neighbouring rows, so each
-// plane's loads are coalesced across the warp; the K shifted reads of x are
-// served by L1/L2, as in K1. The TPU kernel reads a plane block once for
-// all L lanes (its plane index map ignores the lane grid axis); here each
-// thread copies its row's K coefficients once into its own column of a
-// shared-memory tile and then sweeps the lanes in register chunks of C, so
-// plane traffic is once per call at any L. In float64 the (K, 128) tile is
-// 64 KiB at K = 64, past the 48 KiB a launch gets by default: the launch
-// raises the kernel's dynamic shared-memory limit first. Faster forms
-// (vector loads, x tiles in shared memory, TMA) are later work.
+// The design:
+//
+//  1. A CTA owns a block of kThreads * R consecutive rows, a thread R of
+//     them (R = kRowBytes / sizeof(T): 4 with float32 and bf16 planes, 2
+//     in float64), and the CTA walks every lane itself, one at a time, as
+//     K1 does. Each lane's R outputs leave in one 16-byte store.
+//  2. At L > 1 the first lane stages the thread's plane values in shared
+//     memory laid out [plane][thread][row] (K * kThreads * R values, up to
+//     kMaxTileBytes; past it every lane reads the planes from global
+//     memory), and the other lanes read them from there: the planes cross
+//     DRAM once a call at any L. Each lane's accumulators sum k = 0..K-1
+//     in order.
+//  3. x comes in guarded element loads, a thread's R neighbours in one
+//     row of the lane; the warp's loads of a plane cover consecutive
+//     rows.
+// The A/B on the card (scripts/torch_k5_ab.py, PERF.md §6) chose these
+// over C lanes' accumulators a thread, 32 bytes of rows a thread, and
+// 16-byte loads of the planes and of x (K1's reads, 5 % slower here).
 //
 // Semantics kept from the TPU kernel: the load of x[l, i + off] is guarded,
 // so a column outside [0, num_cols) reads 0 (the TPU kernel's zero halo);
@@ -43,13 +51,26 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dia_rows.cuh"
 #include "rn_arith.cuh"
 
 namespace {
 
 constexpr int kMaxPlanes = 64;
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+// bytes of a thread's run of rows (its stores: dia_rows.cuh)
+constexpr int kRowBytes = 16;
+// the most shared memory a CTA's plane tile takes (Hopper's 227 KiB), and
+// what a launch gets without raising the kernel's limit
+constexpr int kMaxTileBytes = 227 * 1024;
 constexpr size_t kDefaultSmem = 48 * 1024;
+
+using namespace tps_dia;
+
+template <typename T>
+__host__ __device__ constexpr int rows_per_thread() {
+  return kRowBytes / static_cast<int>(sizeof(T));
+}
 
 struct PlaneParams {
   long long offsets[kMaxPlanes];
@@ -63,72 +84,63 @@ __device__ __forceinline__ float upcast(__nv_bfloat16 v) {
 __device__ __forceinline__ double upcast(double v) { return v; }
 
 // PlaneT: the stored plane type; T: x, y and the accumulator (float for
-// float32 and bf16 planes, double for float64 planes). C: lanes held in
-// registers per sweep (1, 4 or 16, chosen from L).
-template <typename PlaneT, typename T, int C>
+// float32 and bf16 planes, double for float64 planes). Tile: lanes after
+// the first read the planes from the CTA's shared-memory tile.
+template <typename PlaneT, typename T, bool Tile>
 __global__ void __launch_bounds__(kThreads)
 dia_planes_kernel(const PlaneT* __restrict__ planes,
                   const T* __restrict__ xt, T* __restrict__ yt,
                   long long num_rows, long long num_cols, int L,
-                  PlaneParams p) {
-  extern __shared__ unsigned char smem_raw[];
-  // column threadIdx.x of a (K, kThreads) tile: this thread's coefficients
-  PlaneT* coef = reinterpret_cast<PlaneT*>(smem_raw);
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (i >= num_rows) return;
-  for (int k = 0; k < p.K; ++k) {
-    coef[k * kThreads + threadIdx.x] = planes[k * num_rows + i];
-  }
-  for (int l0 = 0; l0 < L; l0 += C) {
-    const int lanes = L - l0 < C ? L - l0 : C;
-    const T* x = xt + static_cast<long long>(l0) * num_cols;
-    T acc[C];
+                  const __grid_constant__ PlaneParams p) {
+  constexpr int R = rows_per_thread<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // this thread's R values of plane k at mine + k * kThreads * R
+  PlaneT* mine = reinterpret_cast<PlaneT*>(smem_raw) + threadIdx.x * R;
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * R;
+  if (i0 >= num_rows) return;
+  for (int l = 0; l < L; ++l) {
+    const T* xl = xt + static_cast<long long>(l) * num_cols;
+    T acc[R];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = T(0);
+    for (int j = 0; j < R; ++j) acc[j] = T(0);
     for (int k = 0; k < p.K; ++k) {
-      const T d = upcast(coef[k * kThreads + threadIdx.x]);
-      const long long j = i + p.offsets[k];
-      const bool in = j >= 0 && j < num_cols;
+      PlaneT* tk = mine + k * kThreads * R;
+      T d[R];
+      if (Tile && l > 0) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (c < lanes) {
-          const T xv = in ? __ldg(x + c * num_cols + j) : T(0);
-          acc[c] = tps_rn::add(acc[c], tps_rn::mul(d, xv));
+        for (int j = 0; j < R; ++j) d[j] = upcast(tk[j]);
+      } else {
+        const PlaneT* pk = planes + k * num_rows + i0;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const PlaneT v = i0 + j < num_rows ? __ldg(pk + j) : PlaneT{};
+          d[j] = upcast(v);
+          if (Tile) tk[j] = v;
         }
       }
-    }
-    T* y = yt + static_cast<long long>(l0) * num_rows + i;
+      T x[R];
+      const long long c0 = i0 + p.offsets[k];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (c < lanes) y[c * num_rows] = acc[c];
+      for (int j = 0; j < R; ++j) {
+        x[j] = (c0 + j >= 0 && c0 + j < num_cols) ? __ldg(xl + c0 + j) : T(0);
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        acc[j] = tps_rn::add(acc[j], tps_rn::mul(d[j], x[j]));
+      }
     }
+    store_rows<T, R>(yt + static_cast<long long>(l) * num_rows, num_rows, i0,
+                     acc);
   }
-}
-
-template <typename PlaneT, typename T, int C>
-cudaError_t launch_c(const PlaneT* planes, const T* xt, T* yt,
-                     long long num_rows, long long num_cols, int L,
-                     const PlaneParams& p, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((num_rows + kThreads - 1) /
-                                        kThreads));
-  const size_t smem = static_cast<size_t>(p.K) * kThreads * sizeof(PlaneT);
-  auto* kernel = dia_planes_kernel<PlaneT, T, C>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(planes, xt, yt, num_rows,
-                                           num_cols, L, p);
-  return cudaGetLastError();
 }
 
 template <typename PlaneT, typename T>
 int launch(const void* planes, const void* xt, void* yt, long long num_rows,
            long long num_cols, int L, int K, const long long* offsets,
            void* stream) {
+  constexpr long long B = static_cast<long long>(kThreads) *
+                          rows_per_thread<T>();
   if (K < 0 || K > kMaxPlanes || num_rows < 0 || num_cols < 0 || L < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -140,15 +152,22 @@ int launch(const void* planes, const void* xt, void* yt, long long num_rows,
   const auto* X = static_cast<const T*>(xt);
   auto* Y = static_cast<T*>(yt);
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (L == 1) {
-    err = launch_c<PlaneT, T, 1>(P, X, Y, num_rows, num_cols, L, p, s);
-  } else if (L <= 4) {
-    err = launch_c<PlaneT, T, 4>(P, X, Y, num_rows, num_cols, L, p, s);
-  } else {
-    err = launch_c<PlaneT, T, 16>(P, X, Y, num_rows, num_cols, L, p, s);
+  const unsigned grid = static_cast<unsigned>((num_rows + B - 1) / B);
+  const size_t tile = static_cast<size_t>(K) * B * sizeof(PlaneT);
+  if (L == 1 || tile > static_cast<size_t>(kMaxTileBytes)) {
+    dia_planes_kernel<PlaneT, T, false><<<grid, kThreads, 0, s>>>(
+        P, X, Y, num_rows, num_cols, L, p);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(err);
+  auto* kernel = dia_planes_kernel<PlaneT, T, true>;
+  if (tile > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(tile));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, tile, s>>>(P, X, Y, num_rows, num_cols, L, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -180,4 +199,16 @@ extern "C" int tps_dia_planes_f64(const void* planes, const void* xt,
                                   const long long* offsets, void* stream) {
   return launch<double, double>(planes, xt, yt, num_rows, num_cols, L, K,
                                 offsets, stream);
+}
+
+// K5's geometry for values of value_bytes (4: K5 with float32 or bf16
+// planes, 8: K5d) into out[3]: threads a CTA, rows a thread, values a
+// 16-byte store of y. Returns 0, or 1 for another value size.
+extern "C" int tps_dia_planes_geometry(int value_bytes, int* out) {
+  if (value_bytes != 4 && value_bytes != 8) return 1;
+  const bool f64 = value_bytes == 8;
+  out[0] = kThreads;
+  out[1] = f64 ? rows_per_thread<double>() : rows_per_thread<float>();
+  out[2] = f64 ? vector_elems<double>() : vector_elems<float>();
+  return 0;
 }

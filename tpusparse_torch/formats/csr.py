@@ -26,6 +26,10 @@ def value_dtype(dtype) -> torch.dtype:
     """The torch value type of a plan for ``dtype`` (a numpy or torch
     float32 or float64); raises TypeError for any other."""
     td = dtype
+    if td is None:
+        # np.dtype(None) is float64: a plan's None default is resolved by
+        # host_value_dtype before it reaches here
+        raise TypeError("dtype None: plans hold float32 or float64 values")
     if not isinstance(td, torch.dtype):
         td = {np.dtype(v): k for k, v in NUMPY_OF.items()}.get(
             np.dtype(dtype))
@@ -33,6 +37,14 @@ def value_dtype(dtype) -> torch.dtype:
         raise TypeError(f"dtype {dtype}: plans hold float32 or float64 "
                         "values")
     return td
+
+
+def host_value_dtype(csr) -> torch.dtype:
+    """The type of a ``dtype=None`` plan of ``csr``: its values' type, as
+    the JAX package's ``np.asarray(csr.values).dtype``."""
+    v = csr.values
+    return value_dtype(v.dtype if isinstance(v, torch.Tensor)
+                       else np.asarray(v).dtype)
 
 
 @dataclasses.dataclass

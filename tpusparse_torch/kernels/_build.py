@@ -50,6 +50,8 @@ SIGNATURES = {
     "tps_dia_planes": (_P, _I32, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
     # the same with float64 planes and no plane_bf16 flag
     "tps_dia_planes_f64": (_P, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
+    # value bytes, out (host int[4]) -> K5's geometry (0 = known size)
+    "tps_dia_planes_geometry": (_I32, _P),
     # row_offsets, col_indices, values, x, y, tile_coords (the plan's),
     # carry_rows, carry_vals, num_rows, nnz, num_tiles, stream
     "tps_merge_spmv": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
@@ -75,6 +77,10 @@ SIGNATURES = {
     "tps_bsr": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P),
     "tps_bsr_f64": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
                     _P),
+    # row_offsets, col_indices, values, X, Y, num_rows, L, index64,
+    # stream: the reference product KR (KRd)
+    "tps_csr_reference": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
+    "tps_csr_reference_f64": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
     # perm, x, y, n, words per row, bytes per word, stream
     "tps_permute": (_P, _P, _P, _I64, _I32, _I32, _P),
     # host entries (ic0_host.cpp; no stream, nothing on the card):

@@ -66,7 +66,15 @@ K1_THREADS = 256
 K1_ROW_BYTES = 32
 K1_VECTOR_BYTES = 16
 
-# the library's geometry by value size, read once
+# K5's geometry, mirrored from csrc/dia_planes.cu (kThreads, kRowBytes;
+# kVectorBytes of csrc/dia_rows.cuh) and checked against the library at
+# every launch: threads a CTA, bytes of a thread's run of rows, bytes of
+# a vector store of y.
+K5_THREADS = 256
+K5_ROW_BYTES = 16
+K5_VECTOR_BYTES = 16
+
+# the library's geometry by (kernel, value size), read once
 _lib_geometry: dict = {}
 
 
@@ -75,6 +83,13 @@ def k1_geometry(itemsize: int) -> tuple:
     (itemsize 4) or K1d (itemsize 8)."""
     return (K1_THREADS, K1_ROW_BYTES // itemsize,
             K1_VECTOR_BYTES // itemsize)
+
+
+def k5_geometry(itemsize: int) -> tuple:
+    """(threads a CTA, rows a thread, values a vector store of y) of K5
+    (itemsize 4: float32 and bf16 planes) or K5d (itemsize 8)."""
+    return (K5_THREADS, K5_ROW_BYTES // itemsize,
+            K5_VECTOR_BYTES // itemsize)
 
 
 def mask_words(dia_host) -> np.ndarray:
@@ -189,20 +204,24 @@ def _check(D: DiaStreamDevice, XT: torch.Tensor) -> None:
             "needed")
 
 
-def _check_geometry(lib, itemsize: int) -> None:
-    """Raise unless the library's K1 geometry for ``itemsize`` is the
-    mirror's (``k1_geometry``)."""
-    if itemsize not in _lib_geometry:
-        out = (ctypes.c_int * 3)()
-        if lib.tps_dia_masked_geometry(itemsize, ctypes.addressof(out)):
-            raise RuntimeError(f"K1 has no geometry for {itemsize}-byte "
-                               "values")
-        _lib_geometry[itemsize] = tuple(out)
-    if _lib_geometry[itemsize] != k1_geometry(itemsize):
+def _check_geometry(lib, itemsize: int, kernel: str = "K1") -> None:
+    """Raise unless the library's K1 (or K5) geometry for ``itemsize`` is
+    the mirror's (``k1_geometry``, ``k5_geometry``)."""
+    entry, mirror = {"K1": ("tps_dia_masked_geometry", k1_geometry),
+                     "K5": ("tps_dia_planes_geometry", k5_geometry)}[kernel]
+    want = mirror(itemsize)
+    key = (kernel, itemsize)
+    if key not in _lib_geometry:
+        out = (ctypes.c_int * len(want))()
+        if getattr(lib, entry)(itemsize, ctypes.addressof(out)):
+            raise RuntimeError(f"{kernel} has no geometry for {itemsize}-"
+                               "byte values")
+        _lib_geometry[key] = tuple(out)
+    if _lib_geometry[key] != want:
         raise RuntimeError(
-            f"K1's geometry for {itemsize}-byte values is "
-            f"{_lib_geometry[itemsize]} in the library, "
-            f"{k1_geometry(itemsize)} in dia_stream.py")
+            f"{kernel}'s geometry for {itemsize}-byte values is "
+            f"{_lib_geometry[key]} in the library, {want} in "
+            "dia_stream.py")
 
 
 def _launch(D: DiaStreamDevice, XT: torch.Tensor) -> torch.Tensor:
@@ -296,9 +315,10 @@ def _launch_planes(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
     L, K, n = XT.shape[0], len(D.offsets), D.num_rows
     if n == 0 or L == 0 or K == 0:
         return torch.zeros((L, n), dtype=XT.dtype, device=XT.device)
+    lib = _build.library()
+    _check_geometry(lib, XT.element_size(), "K5")
     Y = torch.empty((L, n), dtype=XT.dtype, device=XT.device)
     offs = (ctypes.c_longlong * K)(*D.offsets)
-    lib = _build.library()
     f64 = XT.dtype == torch.float64
     with torch.cuda.device(XT.device):
         stream = torch.cuda.current_stream(XT.device).cuda_stream

@@ -34,9 +34,9 @@ The numerical contract. A row of length <= C is summed in one pass in
 CSR order, each product and sum rounded apart. A split row is each
 chunk summed so, then the chunk partials summed in chunk order (a
 second kernel, launched only when the plan has split rows). The plain
-version follows the same order (``csr_matmat`` over the work rows, then
-``index_add_`` of the partials by owner, which runs in chunk order on
-the CPU), so the kernel equals it run on the CPU bit for bit on every
+version follows the same order (``csr_matmat_plain`` over the work
+rows, then ``index_add_`` of the partials by owner, which runs in chunk
+order on the CPU), so the kernel equals it run on the CPU bit for bit on every
 row; two runs give bitwise equal Y (no float atomics). Every row stays
 within ``|Y - AX| <= (nnz_i + 2) u (|A||X|)_i`` of the exact product:
 a split row's error constant is at most C + ceil(nnz_i / C) <= nnz_i + 2.
@@ -51,7 +51,7 @@ import torch
 
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.spmm_merge import check_operands, scaled_product
-from tpusparse_torch.ops.reference import csr_matmat
+from tpusparse_torch.ops.reference import csr_matmat_plain
 
 # C: the most nonzeros one thread group walks (a longer row is cut);
 # 256 of {256, 512, 1024} on the H100 (PERF.md §6).
@@ -179,8 +179,8 @@ def spmm_row_split_plain(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
     gather, multiply and per-row ``index_add_`` over the work rows, then
     the partials of each split row added into it by ``index_add_``."""
     B = _table_of(A, X)
-    Yw = csr_matmat(B.num_work_rows, B.work_offsets, A.col_indices,
-                    A.values, X)
+    Yw = csr_matmat_plain(B.num_work_rows, B.work_offsets, A.col_indices,
+                          A.values, X)
     if B.num_chunks == 0:
         return Yw
     Y = torch.zeros((A.num_rows, X.shape[1]), dtype=Yw.dtype,

@@ -30,7 +30,7 @@ import torch
 
 from tpusparse_torch.formats.csr import VALUE_DTYPES
 from tpusparse_torch.kernels import _build
-from tpusparse_torch.ops.reference import csr_matvec
+from tpusparse_torch.ops.reference import csr_matvec_plain
 
 # K2 launches since the count was last reset (plain runs not counted).
 LAUNCHES = 0
@@ -97,7 +97,8 @@ def to_device_merge(csr, device, dtype=torch.float32) -> MergeDevice:
 def spmv_merge_plain(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2 and K2d: gather, multiply,
     ``index_add_``, in the values' dtype."""
-    return csr_matvec(A.num_rows, A.row_offsets, A.col_indices, A.values, x)
+    return csr_matvec_plain(A.num_rows, A.row_offsets, A.col_indices,
+                            A.values, x)
 
 
 def _check(A: MergeDevice, x: torch.Tensor) -> None:

@@ -33,7 +33,7 @@ import torch
 from tpusparse_torch.formats.csr import VALUE_DTYPES
 from tpusparse_torch.kernels import _build, merge_spmv
 from tpusparse_torch.kernels.merge_spmv import MergeDevice
-from tpusparse_torch.ops.reference import csr_matmat
+from tpusparse_torch.ops.reference import csr_matmat_plain
 
 # K3 launches since the count was last reset (plain runs not counted).
 LAUNCHES = 0
@@ -74,7 +74,8 @@ def group_items(L: int, itemsize: int) -> int:
 def spmm_merge_plain(A: MergeDevice, X: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K3 and K3d: gather the rows of X,
     multiply, ``index_add_`` per row, in the values' dtype."""
-    return csr_matmat(A.num_rows, A.row_offsets, A.col_indices, A.values, X)
+    return csr_matmat_plain(A.num_rows, A.row_offsets, A.col_indices,
+                            A.values, X)
 
 
 def check_operands(A, X: torch.Tensor, kernel: str) -> None:

@@ -3,21 +3,28 @@
 Port of ``tpusparse/ops/reference.py``:
 
   * ``spmv_numpy`` — host golden model, always in float64;
-  * ``spmv_reference`` / ``spmm_reference`` — plain-torch CSR
-    products: gather x (or the rows of X), multiply, ``index_add_`` over
-    expanded row ids, in the dtype of the operand's values (float64
-    values give the float64 golden product on the card). They are the
-    ``reference`` strategy, and
-    ``csr_matvec`` / ``csr_matmat`` are the plain versions behind the
-    merge and row-split kernels (in the dtype of the values they are
-    given, so float64 values give the float64 product the kernels are
-    held to).
+  * ``spmv_reference`` / ``spmm_reference`` — the ``reference``
+    strategy: ``csr_matvec`` / ``csr_matmat`` on the operand, in the
+    dtype of its values (float64 values give the float64 golden
+    product);
+  * ``csr_matvec`` / ``csr_matmat`` — the golden CSR products. On the
+    CPU: gather x (or the rows of X), multiply, ``index_add_`` over
+    expanded row ids, which adds each row's products in CSR order. On
+    the card: the kernel KR (KRd in float64,
+    ``kernels/csr_reference.py``), which adds in the same order and so
+    gives the CPU's bits on every call, where CUDA's ``index_add_`` adds
+    with atomics in no fixed order;
+  * ``csr_matvec_plain`` / ``csr_matmat_plain`` — the ``index_add_``
+    products on any device: the plain versions behind the merge and
+    row-split kernels and KR.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpusparse_torch.kernels.csr_reference import csr_reference_kernel
 
 
 def expand_row_ids(row_offsets: torch.Tensor, num_rows: int,
@@ -32,6 +39,27 @@ def expand_row_ids(row_offsets: torch.Tensor, num_rows: int,
 
 def csr_matvec(num_rows: int, row_offsets, col_indices, values,
                x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for CSR tensors in the dtype of ``values``: KR (KRd) on
+    a CUDA tensor, ``csr_matvec_plain`` on the CPU; the same bits."""
+    if values.device.type == "cuda":
+        return csr_reference_kernel(num_rows, row_offsets, col_indices,
+                                    values, x.reshape(-1, 1)).reshape(-1)
+    return csr_matvec_plain(num_rows, row_offsets, col_indices, values, x)
+
+
+def csr_matmat(num_rows: int, row_offsets, col_indices, values,
+               X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for CSR tensors and X (num_cols, L) in the dtype of
+    ``values``: KR (KRd) on a CUDA tensor, ``csr_matmat_plain`` on the
+    CPU; the same bits."""
+    if values.device.type == "cuda":
+        return csr_reference_kernel(num_rows, row_offsets, col_indices,
+                                    values, X)
+    return csr_matmat_plain(num_rows, row_offsets, col_indices, values, X)
+
+
+def csr_matvec_plain(num_rows: int, row_offsets, col_indices, values,
+                     x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for CSR tensors, in plain torch, in the dtype of
     ``values``."""
     rows = expand_row_ids(row_offsets, num_rows, col_indices.shape[0])
@@ -40,8 +68,8 @@ def csr_matvec(num_rows: int, row_offsets, col_indices, values,
     return y.index_add_(0, rows, prod)
 
 
-def csr_matmat(num_rows: int, row_offsets, col_indices, values,
-               X: torch.Tensor) -> torch.Tensor:
+def csr_matmat_plain(num_rows: int, row_offsets, col_indices, values,
+                     X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for CSR tensors and X (num_cols, L), in plain torch, in
     the dtype of ``values``: gather the rows of X, scale, ``index_add_``
     per row."""

@@ -168,14 +168,15 @@ def _wrap_reordered(csr, perm, strategy, dtype, L, order, device):
                          build_permute_plan(np.argsort(perm), device), order)
 
 
-def plan_reorder(csr: CsrMatrix, strategy="auto", dtype=np.float32,
+def plan_reorder(csr: CsrMatrix, strategy="auto", dtype=None,
                  L: int = 1, order: str = "rcm", device="cuda"):
     """A plan of the symmetrically permuted matrix, wrapped so callers
     use it as any other plan. ``order='rcm'`` and ``'degree'`` always
     permute; ``'auto'`` applies RCM when the primary gate holds and
     otherwise returns the unpermuted plan (see the module docstring for
     the JAX package's secondary candidates, not ported). A matrix that
-    is not square or has no entries is planned unpermuted."""
+    is not square or has no entries is planned unpermuted. ``dtype`` as
+    in ``plan_matrix``: None plans in the host values' type."""
     from tpusparse_torch.ops.spmv import plan_matrix
 
     if order not in ("rcm", "degree", "auto"):

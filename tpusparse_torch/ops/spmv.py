@@ -68,7 +68,11 @@ import numpy as np
 import torch
 
 from tpusparse_torch.formats.bcsr import BcsrMatrix
-from tpusparse_torch.formats.csr import CsrMatrix, value_dtype
+from tpusparse_torch.formats.csr import (
+    CsrMatrix,
+    host_value_dtype,
+    value_dtype,
+)
 from tpusparse_torch.formats.dia import (
     DiaDevice,
     diagonal_profile,
@@ -131,7 +135,7 @@ class SpmvStrategy(enum.Enum):
 
 # Where each strategy the port does not run yet is planned (ROADMAP.md).
 _NOT_PORTED = {
-    SpmvStrategy.NONZERO_SPLIT: "the nonzero_split strategy row (ROADMAP A14)",
+    SpmvStrategy.NONZERO_SPLIT: "the nonzero_split strategy row (ROADMAP A19)",
     SpmvStrategy.BCOO: "the vendor-baseline row (ROADMAP A6)",
 }
 
@@ -143,11 +147,13 @@ DIA_MIN_COVERAGE = 0.3
 BSR_BLOCK = (8, 128)
 
 
-def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
+def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=None,
                 L: int = 1, device="cuda", reorder=None):
     """Build the device operand of a host CsrMatrix on ``device``, its
     values in ``dtype`` (numpy or torch float32 or float64; float64
-    keeps the host values unrounded). ``L`` (>= 1) is the number of
+    keeps the host values unrounded; None, the default, takes the host
+    values' type, as the JAX package does: pass ``dtype=np.float32``
+    for a float32 plan of float64 values). ``L`` (>= 1) is the number of
     right-hand sides the plan will serve; it does not change the choice,
     and every plan serves any L but the n-major one, which serves up to
     the JAX package's padded lane count for L. ``reorder`` ('rcm',
@@ -159,7 +165,7 @@ def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=np.float32,
         return plan_reorder(csr, strategy=strategy, dtype=dtype, L=L,
                             order=reorder, device=device)
     strategy = SpmvStrategy.parse(strategy)
-    dtype = value_dtype(dtype)
+    dtype = value_dtype(host_value_dtype(csr) if dtype is None else dtype)
     if int(L) < 1:
         raise ValueError(f"L={L}: the number of right-hand sides is >= 1")
     if strategy in _NOT_PORTED:
@@ -333,8 +339,22 @@ def _vector_dtype(A) -> torch.dtype:
     return torch.float64 if plan_dtype(A) == torch.float64 else torch.float32
 
 
-def spmv(A, x, alpha=1.0, beta=0.0, y=None):
-    """y = alpha * A @ x + beta * y for any plan of ``plan_matrix``."""
+def device_operand(A, like: torch.Tensor):
+    """``A``, or for a host ``CsrMatrix`` (numpy arrays) the same matrix
+    on ``like``'s device in ``like``'s type: the JAX package runs its
+    reference product on a host CSR."""
+    if isinstance(A, CsrMatrix) and not isinstance(A.values, torch.Tensor):
+        return A.to(like.device, like.dtype)
+    return A
+
+
+def spmv(A, x, alpha=1.0, beta=0.0, y=None, strategy="auto"):
+    """y = alpha * A @ x + beta * y for any plan of ``plan_matrix``, or
+    a host ``CsrMatrix`` (``device_operand``). ``strategy`` is the JAX
+    package's argument: validated only, since on a plan the product
+    does not depend on it."""
+    SpmvStrategy.parse(strategy)
+    A = device_operand(A, x)
     if isinstance(A, ReorderedPlan):
         xp = A.apply_perm(x.to(_vector_dtype(A)))
         y_new = A.apply_inv(spmv(A.inner, xp, alpha=alpha))
@@ -358,10 +378,12 @@ def spmv(A, x, alpha=1.0, beta=0.0, y=None):
     raise TypeError(f"not a plan: {type(A).__name__}")
 
 
-def spmm(A, X, alpha=1.0, beta=0.0, Y=None):
-    """Y = alpha * A @ X + beta * Y for any plan of ``plan_matrix``, X
-    of shape (num_cols, L); a 1-D X (and Y) is taken as L = 1 and the
-    result is 1-D."""
+def spmm(A, X, alpha=1.0, beta=0.0, Y=None, strategy="auto"):
+    """Y = alpha * A @ X + beta * Y for any plan of ``plan_matrix`` (or
+    a host ``CsrMatrix``), X of shape (num_cols, L); a 1-D X (and Y) is
+    taken as L = 1 and the result is 1-D. ``strategy`` as in ``spmv``."""
+    SpmvStrategy.parse(strategy)
+    A = device_operand(A, X)
     if X.dim() == 1:
         Y2 = None if Y is None else Y.reshape(-1, 1)
         return spmm(A, X.reshape(-1, 1), alpha=alpha, beta=beta, Y=Y2)[:, 0]

@@ -80,7 +80,12 @@ from tpusparse_torch.ops.blas import (
 )
 from tpusparse_torch.ops.hybrid import HybridPlan
 from tpusparse_torch.ops.reorder import ReorderedPlan
-from tpusparse_torch.ops.spmv import spmm, spmv
+from tpusparse_torch.ops.spmv import (
+    SpmvStrategy,
+    device_operand,
+    spmm,
+    spmv,
+)
 
 
 @dataclasses.dataclass
@@ -96,15 +101,23 @@ class CgResult:
 
 
 def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
-             tolerance: float = 1e-5, record_history: bool = False, *,
+             tolerance: float = 1e-5, strategy="auto",
              x0: torch.Tensor | None = None,
-             matvec: Callable | None = None) -> CgResult:
+             matvec: Callable | None = None, record_history: bool = False,
+             bake: bool | None = None) -> CgResult:
     """Solve A x = b for a plan ``A`` of ``plan_matrix``; ``b`` lies on
     the plan's device, in the working dtype. ``x0`` is a warm start (r =
-    b - A x0); ``matvec(v) -> A v`` replaces the plan's product."""
+    b - A x0); ``matvec(v) -> A v`` replaces the plan's product. The
+    arguments are the JAX package's, in its order: ``strategy`` is
+    validated only (on a plan the JAX product does not depend on it),
+    and ``bake`` is ignored (plan baking is an XLA-TPU device). A host
+    ``CsrMatrix`` runs the reference product on ``b``'s device, in
+    ``b``'s type."""
+    SpmvStrategy.parse(strategy)
+    A = device_operand(A, b)
     if isinstance(A, ReorderedPlan) and x0 is None and matvec is None:
         res = cg_solve(A.inner, A.apply_perm(b), max_iters, tolerance,
-                       record_history)
+                       record_history=record_history)
         return dataclasses.replace(res, x=A.apply_inv(res.x))
     mv = matvec if matvec is not None else (lambda v: spmv(A, v))
     x = torch.zeros_like(b) if x0 is None else x0
@@ -137,17 +150,22 @@ def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
 
 
 def cg_solve_multi(A, B: torch.Tensor, max_iters: int = 10000,
-                   tolerance: float = 1e-5, record_history: bool = True, *,
-                   matmat: Callable | None = None) -> CgResult:
+                   tolerance: float = 1e-5, strategy="auto",
+                   matmat: Callable | None = None,
+                   record_history: bool = True,
+                   bake: bool | None = None) -> CgResult:
     """Solve A X = B for B (n, L) lane by lane, for a plan ``A`` of
     ``plan_matrix``; ``B`` lies on the plan's device, in the working
     dtype. ``matmat(V) -> A V`` on (n, L) blocks replaces the plan's
-    product."""
+    product. ``strategy``, ``bake`` and a host ``CsrMatrix`` as in
+    ``cg_solve``."""
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
+    SpmvStrategy.parse(strategy)
+    A = device_operand(A, B)
     if matmat is None and isinstance(A, ReorderedPlan):
         res = cg_solve_multi(A.inner, A.apply_perm(B), max_iters, tolerance,
-                             record_history)
+                             record_history=record_history)
         return dataclasses.replace(res, x=A.apply_inv(res.x))
     if matmat is None:
         matmat = _nmajor_callable(A, B)

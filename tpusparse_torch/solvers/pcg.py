@@ -47,7 +47,7 @@ from typing import Any, Callable
 import torch
 
 from tpusparse_torch.ops.reorder import ReorderedPlan
-from tpusparse_torch.ops.spmv import spmm
+from tpusparse_torch.ops.spmv import SpmvStrategy, spmm
 from tpusparse_torch.solvers.cg import (
     CgResult,
     _cg_multi_loop,
@@ -67,16 +67,19 @@ def _same_order(perm, plan_perm: torch.Tensor) -> bool:
 
 def pcg_solve_multi(A, B: torch.Tensor, apply_precond: Callable,
                     max_iters: int = 10000, tolerance: float = 1e-5,
-                    matmat: Callable | None = None,
-                    record_history: bool = True, perm=None) -> CgResult:
+                    strategy="auto", matmat: Callable | None = None,
+                    record_history: bool = True, *, perm=None) -> CgResult:
     """Blocked multi-RHS PCG on A X = B for a plan ``A`` of
     ``plan_matrix`` (or ``matmat``, an (n, L) -> (n, L) product), with
     ``apply_precond(R) -> Z`` applying M^{-1} column-wise on (n, L)
     blocks, in the caller's order unless ``perm`` declares the plan's
     (see the module docstring). ``perm`` defaults to
-    ``apply_precond.perm`` where it has one (``Ic0Preconditioner``)."""
+    ``apply_precond.perm`` where it has one (``Ic0Preconditioner``).
+    The positional arguments are the JAX package's; ``strategy`` is
+    validated only, as in ``cg_solve``."""
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
+    SpmvStrategy.parse(strategy)
     if perm is None:
         perm = getattr(apply_precond, "perm", None)
     if isinstance(A, ReorderedPlan) and matmat is None:
@@ -90,7 +93,7 @@ def pcg_solve_multi(A, B: torch.Tensor, apply_precond: Callable,
             raise ValueError("the preconditioner declares another order "
                              "than the plan's (perm is not A.perm)")
         res = pcg_solve_multi(A.inner, A.apply_perm(B), prec, max_iters,
-                              tolerance, None, record_history)
+                              tolerance, record_history=record_history)
         return dataclasses.replace(res, x=A.apply_inv(res.x))
     if perm is not None:
         raise ValueError(

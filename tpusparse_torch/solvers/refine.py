@@ -42,7 +42,7 @@ import dataclasses
 import torch
 
 from tpusparse_torch.ops.blas import dot_multiple, dot_single
-from tpusparse_torch.ops.spmv import plan_semantics, spmm, spmv
+from tpusparse_torch.ops.spmv import SpmvStrategy, plan_semantics, spmm, spmv
 from tpusparse_torch.solvers.cg import cg_solve, cg_solve_multi
 
 
@@ -72,13 +72,17 @@ class ReplCgResult:
 
 def cg_solve_bf16(A16, A32, b: torch.Tensor, tolerance: float = 1e-5,
                   max_iters: int = 10000, replace_every: int = 8,
-                  max_restarts: int = 3) -> ReplCgResult:
+                  max_restarts: int = 3, strategy="auto",
+                  bake: bool | None = None) -> ReplCgResult:
     """Single-RHS float32-accurate CG at bf16-plane matvec speed: CG
     with the bf16-plane plan ``A16`` (``plan_dia_bf16``), the recurrence
     residual replaced by the exact ``b - A32 x`` every
     ``replace_every`` iterations while the search direction is kept.
     Convergence is verified against ``A32``; a failed verification
-    restarts from the true residual (at most ``max_restarts`` times)."""
+    restarts from the true residual (at most ``max_restarts`` times).
+    ``strategy`` is validated only and ``bake`` ignored, as in
+    ``cg_solve``."""
+    SpmvStrategy.parse(strategy)
     b = b.to(torch.float32)
     bn = torch.sqrt(dot_single(b, b))
     bn = torch.where(bn == 0, torch.ones_like(bn), bn)
@@ -146,11 +150,14 @@ def _refined_f32(A16, A32, b, multi, tolerance, inner_tolerance,
 def cg_solve_refined_f32(A16, A32, b: torch.Tensor, tolerance: float = 1e-5,
                          inner_tolerance: float = 1e-2,
                          inner_max_iters: int = 1000,
-                         max_refinements: int = 12) -> RefineResult:
+                         max_refinements: int = 12, strategy="auto",
+                         bake: bool | None = None) -> RefineResult:
     """Single-RHS float32 solve by refinement: inner CG on the
     bf16-plane plan ``A16`` to ``inner_tolerance`` (the bf16 operator is
     accurate to about 4e-3, so a tighter inner solve buys nothing per
-    step), exact float32 residuals on ``A32``."""
+    step), exact float32 residuals on ``A32``. ``strategy`` is validated
+    only and ``bake`` ignored, as in ``cg_solve``."""
+    SpmvStrategy.parse(strategy)
     return _refined_f32(A16, A32, b, False, tolerance, inner_tolerance,
                         inner_max_iters, max_refinements)
 
@@ -159,9 +166,11 @@ def cg_solve_multi_refined_f32(A16, A32, B: torch.Tensor,
                                tolerance: float = 1e-5,
                                inner_tolerance: float = 1e-2,
                                inner_max_iters: int = 1000,
-                               max_refinements: int = 12) -> RefineResult:
+                               max_refinements: int = 12, strategy="auto",
+                               bake: bool | None = None) -> RefineResult:
     """Blocked multi-RHS variant of :func:`cg_solve_refined_f32`: B is
     (n, L), and the loop ends on the largest lane's residual."""
+    SpmvStrategy.parse(strategy)
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
     return _refined_f32(A16, A32, B, True, tolerance, inner_tolerance,
@@ -209,11 +218,14 @@ def _solve_refined(A32, A_acc, b, multi, tolerance, inner_tolerance,
 def cg_solve_refined(A32, A_acc, b: torch.Tensor, tolerance: float = 1e-12,
                      inner_tolerance: float = 1e-7,
                      inner_max_iters: int = 10000,
-                     max_refinements: int = 8) -> RefineResult:
+                     max_refinements: int = 8,
+                     strategy="auto") -> RefineResult:
     """Single-RHS float64 solve by refinement: inner CG on the float32
     plan ``A32`` to ``inner_tolerance``, float64 residuals on the
     float64 plan ``A_acc`` (``plan_matrix(csr, dtype=np.float64)``),
-    ``x`` updated in float64. At least two refinements run."""
+    ``x`` updated in float64. At least two refinements run.
+    ``strategy`` is validated only, as in ``cg_solve``."""
+    SpmvStrategy.parse(strategy)
     return _solve_refined(A32, A_acc, b, False, tolerance, inner_tolerance,
                           inner_max_iters, max_refinements)
 
@@ -222,10 +234,12 @@ def cg_solve_multi_refined(A32, A_acc, B: torch.Tensor,
                            tolerance: float = 1e-12,
                            inner_tolerance: float = 1e-7,
                            inner_max_iters: int = 10000,
-                           max_refinements: int = 8) -> RefineResult:
+                           max_refinements: int = 8,
+                           strategy="auto") -> RefineResult:
     """Blocked multi-RHS variant of :func:`cg_solve_refined`: B is
     (n, L), the inner solve is ``cg_solve_multi``, and the loop ends on
     the largest lane's residual."""
+    SpmvStrategy.parse(strategy)
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
     return _solve_refined(A32, A_acc, B, True, tolerance, inner_tolerance,

@@ -17,13 +17,14 @@ from tpusparse_torch.solvers.pcg import pcg_solve_multi
 
 
 def spai_cg_solve_multi(A, M, B: torch.Tensor, max_iters: int = 10000,
-                        tolerance: float = 1e-5,
-                        record_history: bool = True,
+                        tolerance: float = 1e-5, strategy="auto",
+                        record_history: bool = True, *,
                         perm=None) -> CgResult:
     """Blocked multi-RHS CG on A X = B with z = M r, for plans ``A`` and
     ``M`` of ``plan_matrix``. M is in the caller's order, as in the JAX
     package; for a ``ReorderedPlan`` A whose M is the SPAI of
-    ``A.permuted(csr)``, pass ``perm=A.perm`` (``pcg_solve_multi``)."""
-    return pcg_solve_multi(A, B, lambda R: spmm(M, R), max_iters,
-                           tolerance, record_history=record_history,
-                           perm=perm)
+    ``A.permuted(csr)``, pass ``perm=A.perm`` (``pcg_solve_multi``).
+    ``strategy`` is validated only, as in ``cg_solve``."""
+    return pcg_solve_multi(A, B, lambda R: spmm(M, R, strategy=strategy),
+                           max_iters, tolerance, strategy,
+                           record_history=record_history, perm=perm)
