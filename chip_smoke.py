@@ -66,8 +66,9 @@ Phases, each printed on its own lines:
       16, n = 0, 1, 1023 and 4,096,000, on the identity, a reversal, a
       seeded random permutation and the RCM permutation of scrambled
       lap3d-160; K7 on n-major plans of lap3d-48, lap2d-300 and lap3d-47
-      (103,823 rows, not a multiple of 32) at L = 2, 3, 16, 32 and 100,
-      bitwise equal to its plain version and to K1 on X.T; K8 and K8d on
+      (103,823 rows, not a multiple of 32) at L = 2, 3, 5, 16, 32, 100
+      and 128 (lane groups of 2, 1, 1, 4, 4, 4 and 4 values), bitwise
+      equal to its plain version and to K1 on X.T; K8 and K8d on
       'bsr' plans of ``make_block_random`` fixtures ((8, 128) blocks,
       full and 0.3 fill, edges cut mid-block with an emptied block row,
       nnz = 0) at L = 1, 3, 16 and 32, within 2(w_i + 2)u|A||X| of their
@@ -171,7 +172,9 @@ Phases, each printed on its own lines:
       ``strategy='nmajor'`` (K7) and on AUTO (K1 behind the transposes),
       checked against float64, each bitwise equal to its plain version
       and K7 to K1 on X.T, timed with K7 and K1 alone beside the
-      plain versions, ``torch.sparse`` and the bound; ``cg_solve_multi``
+      plain versions, ``torch.sparse`` and the bound; K7 on lap3d-40 at
+      L = 3 and 128 bitwise equal to its plain version and to K1 on X.T
+      (not counted); ``cg_solve_multi``
       on both plans (iterations within 1, ms/iteration); Jacobi
       IC(0)-PCG at L = 16 on natural-order lap3d-128 on both plans, K7
       and the Jacobi strict triangles' K5 held against their plain
@@ -1707,11 +1710,11 @@ def preconditioned_phase(gen, reset_counts, read_counts):
     return read_counts("preconditioned path", ("K6", "K3", "K3d")), t_tri
 
 
-K7_LS = (2, 3, 16, 32, 100)
+K7_LS = (2, 3, 5, 16, 32, 100, 128)
 
 
-def k7_vs_plain(name, csr, L, seed):
-    """[2] K7 on an n-major plan for L right-hand sides: bitwise equal to
+def k7_vs_plain(name, csr, L, seed, phase=2):
+    """K7 on an n-major plan for L right-hand sides: bitwise equal to
     its plain version and to K1 on X.T, transposed back. Returns max
     |K7 - plain| (0)."""
     from tpusparse_torch import plan_kind, plan_matrix
@@ -1728,8 +1731,9 @@ def k7_vs_plain(name, csr, L, seed):
           f"{what}: finite Y of shape ({csr.num_rows}, {L})")
     check(torch.equal(Y, Yp), f"{what}: bitwise equal to plain")
     check(torch.equal(Y, Y1), f"{what}: bitwise equal to K1 on X.T")
-    print(f"[2] {what}: bitwise equal to its plain version and to K1 on "
-          f"X.T (plan L {A.dia.L})")
+    print(f"[{phase}] {what}: bitwise equal to its plain version and to K1 "
+          f"on X.T (plan L {A.dia.L}, lane groups of "
+          f"{dia_nmajor.k7_lane_group(L, X, Y)})")
     return float((Y - Yp).abs().max())
 
 
@@ -1893,6 +1897,12 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
     print(f"[14] lap3d-160 L={L_MULTI}: K7 bitwise equal to its plain "
           "version and to K1 on X.T (AUTO's spmm); K1 bitwise equal to its "
           "plain version", flush=True)
+    # K7 at an odd L (lane groups of one value) and at the widest plan
+    with uncounted():
+        lap40 = gen.make_laplacian_grid3d(40).to_csr()
+        for L in (3, 128):
+            k7_vs_plain("lap3d-40", lap40, L, 620 + L, phase=14)
+        del lap40
     del Ys, Y
     lib = library_csr(C)
     fl = spmv_flops(lap160.nnz, L_MULTI)

@@ -44,9 +44,12 @@ from tpusparse_torch.kernels import (
     spmm_merge,
 )
 from tpusparse_torch.ops.reference import csr_matmat, csr_matvec
+from tpusparse_torch.ops.reorder import ReorderedPlan
 from test_torch_dia_masked_tiles import K1_CASES, emulate_k1
 from test_torch_dia_planes_tiles import K5_CASES, emulate_k5
 from test_torch_merge_spmm_tiles import K3_CASES, emulate_k3, integer_valued
+from test_torch_nmajor_tiles import emulate_k7
+from test_torch_permute_tiles import emulate_k6
 
 pytestmark = pytest.mark.cuda
 
@@ -717,16 +720,19 @@ def _perm_x(n, L, dtype, dev, seed):
 
 
 @pytest.mark.parametrize("n", [0, 1, 1023, 5000])
-@pytest.mark.parametrize("L", [0, 1, 3, 4, 16])
+@pytest.mark.parametrize("L", [0, 1, 2, 3, 4, 16, 33, 1030])
 @pytest.mark.parametrize("dtype", K6_DTYPES, ids=str)
 def test_k6_matches_index_select_bitwise(cuda, dtype, L, n):
-    """L = 0 is a vector (n,); every (n, L) block in every type, with a
-    random, a reversed and the identity permutation."""
+    """L = 0 is a vector (n,); every (n, L) block in every type (a row of
+    1030 values has more words than a CTA has threads), with a random, a
+    reversed and the identity permutation: bitwise equal to
+    ``index_select`` and to its emulation, and through a ReorderedPlan
+    (``apply_perm``, ``apply_inv``) there and back."""
     from tpusparse_torch.kernels import permute
 
     x = _perm_x(n, L, dtype, cuda, n + L)
     for perm in (np.random.default_rng(n).permutation(n),
-                 np.arange(n)[::-1], np.arange(n)):
+                 np.arange(n)[::-1].copy(), np.arange(n)):
         p = permute.build_permute_plan(perm, cuda)
         before = permute.LAUNCHES
         y = permute.permute_apply(p, x)
@@ -734,20 +740,32 @@ def test_k6_matches_index_select_bitwise(cuda, dtype, L, n):
         assert permute.LAUNCHES == before + (1 if x.numel() else 0)
         assert y.dtype == x.dtype and y.shape == x.shape
         assert torch.equal(y, x.index_select(0, p))
+        if n:
+            np.testing.assert_array_equal(y.cpu().numpy(),
+                                          emulate_k6(perm, x.cpu()).numpy())
+        inv = permute.build_permute_plan(np.argsort(perm), cuda)
+        A = ReorderedPlan(n, n, 0, None, p, inv)
+        assert torch.equal(A.apply_perm(x), y)
+        assert torch.equal(A.apply_inv(y), x)
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_k6_unaligned_rows(cuda, offset):
     """Rows of 16 B at an address that is only 4- (or 8-) aligned: K6
-    falls back to narrower words and stays exact."""
+    falls back to narrower words and stays exact, as its emulation does."""
     from tpusparse_torch.kernels import permute
 
     n = 1000
     flat = torch.arange((n + 1) * 4, dtype=torch.float32, device=cuda)
     x = flat[offset:offset + n * 4].view(n, 4)
-    p = permute.build_permute_plan(np.random.default_rng(1).permutation(n),
-                                   cuda)
-    assert torch.equal(permute.permute_apply(p, x), x.index_select(0, p))
+    perm = np.random.default_rng(1).permutation(n)
+    p = permute.build_permute_plan(perm, cuda)
+    y = permute.permute_apply(p, x)
+    assert torch.equal(y, x.index_select(0, p))
+    cpu = flat.cpu()
+    np.testing.assert_array_equal(
+        y.cpu().numpy(),
+        emulate_k6(perm, cpu[offset:offset + n * 4].view(n, 4)).numpy())
 
 
 def test_k6_raises_on_wrong_operands(cuda):
@@ -863,12 +881,17 @@ def test_preconditioned_solvers_on_card_match_cpu(cuda):
 NMAJOR_CASES = {
     "lap3d-16": lambda: gen.make_laplacian_grid3d(16).to_csr(),
     "lap2d-33": lambda: gen.make_laplacian_grid2d(33).to_csr(),  # 1089 rows
+    # 125 rows: fewer than one CTA's block at every L
+    "lap3d-5": lambda: gen.make_laplacian_grid3d(5).to_csr(),
 }
 
 
-@pytest.mark.parametrize("L", [2, 3, 16, 100])
+@pytest.mark.parametrize("L", [2, 3, 4, 5, 16, 33, 100, 128])
 @pytest.mark.parametrize("name", list(NMAJOR_CASES))
 def test_k7_matches_plain_and_k1_bitwise(cuda, name, L):
+    """Every lane group (V = 2, 1, 4, 1, 4, 1, 4, 4), and V = 1 and 2 on an
+    X whose data starts 4 or 8 bytes off a 16-byte boundary: bitwise
+    equal to the plain version, to the emulation and to K1 on X.T."""
     from tpusparse_torch.kernels import dia_nmajor
 
     A = plan_matrix(NMAJOR_CASES[name](), "nmajor", L=L, device=cuda,
@@ -881,11 +904,19 @@ def test_k7_matches_plain_and_k1_bitwise(cuda, name, L):
     assert dia_nmajor.LAUNCHES == before + 2
     assert Y1.shape == (D.num_rows, L) and torch.equal(Y1, Y2)
     assert torch.equal(Y1, dia_nmajor.spmm_nmajor_plain(D, X))
+    V = dia_nmajor.k7_lane_group(L, X, Y1)
+    np.testing.assert_array_equal(Y1.cpu().numpy(),
+                                  emulate_k7(D, X.cpu().numpy(), V))
     YT = dia_stream.spmm_dia_stream_t(D.band, X.T.contiguous())
     assert torch.equal(Y1, YT.T)
     # through spmm / spmv on the plan, fewer columns than its L
     assert torch.equal(spmm(A, X[:, :1].contiguous())[:, 0],
                        spmv(A, X[:, 0].contiguous()))
+    for shift in (1, 2):
+        flat = torch.empty(X.numel() + shift, device=cuda)
+        Xs = flat[shift:].view(X.shape)
+        Xs.copy_(X)
+        assert torch.equal(dia_nmajor.nmajor_matmat(D, Xs), Y1)
 
 
 def test_k7_refuses_wrong_operands(cuda):
@@ -911,8 +942,9 @@ def test_k7_refuses_wrong_operands(cuda):
 def test_new_kernels_do_not_fall_back_without_the_library(cuda,
                                                           monkeypatch):
     """A CUDA tensor launches the kernel or raises: with no library to
-    load, K7, K8 and K8d raise instead of running their plain versions."""
-    from tpusparse_torch.kernels import _build, bsr, dia_nmajor
+    load, K7, K8, K8d and K6 (alone and through a ReorderedPlan) raise
+    instead of running their plain versions."""
+    from tpusparse_torch.kernels import _build, bsr, dia_nmajor, permute
 
     A = plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=4, device=cuda,
                     dtype=np.float32)
@@ -932,6 +964,15 @@ def test_new_kernels_do_not_fall_back_without_the_library(cuda,
         with pytest.raises(RuntimeError, match="nvcc"):
             bsr.bsr_matmat(P, torch.zeros(P.num_cols, 3, device=cuda,
                                           dtype=dt))
+    perm = np.random.default_rng(8).permutation(64)
+    p = permute.build_permute_plan(perm, cuda)
+    R = ReorderedPlan(64, 64, 0, None, p,
+                      permute.build_permute_plan(np.argsort(perm), cuda))
+    for x in (torch.zeros(64, device=cuda), torch.zeros(64, 16, device=cuda)):
+        for fn in (lambda: permute.permute_apply(p, x),
+                   lambda: R.apply_perm(x), lambda: R.apply_inv(x)):
+            with pytest.raises(RuntimeError, match="nvcc"):
+                fn()
 
 
 def _bsr_cases():

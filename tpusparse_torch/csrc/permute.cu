@@ -22,6 +22,15 @@
 // each 4- or 8-byte load its own 32-byte sector, so the gather then costs
 // up to 8 (or 4) times its byte count; an RCM or banded perm keeps
 // neighbouring rows near each other and the sectors are shared.
+//
+// The A/B on the card (scripts/torch_k7_ab.py, PERF.md §6) kept this
+// design against two others: a thread moving 2, 4 or 8 rows (16-byte
+// loads of perm, the gathers issued together, 16-byte stores of y) was 1-6
+// % slower, and a scatter y[perm^-1[j]] = x[j] (x read in order, the
+// scattered traffic sent to the stores) 13-80 % slower. At L = 1 the
+// gathers of the RCM order of a scrambled lap3d-160 are one random 32-byte
+// L2 sector each, and the kernel runs at the rate L2 serves them: more
+// gathers in flight a thread change nothing.
 
 #include <cstdint>
 

@@ -69,9 +69,11 @@ SIGNATURES = {
     # split_rows, split_offsets, num_work, num_split, L, stream
     "tps_rowsplit_spmm": (*(_P,) * 9, *(_I32,) * 3, _P),
     "tps_rowsplit_spmm_f64": (*(_P,) * 9, *(_I32,) * 3, _P),
-    # mask, x, y, n, L, K, offsets (host int*), vals (host float*),
-    # stream: K7, float32 only
-    "tps_dia_nmajor": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
+    # mask, x, y, n, L, V (values a lane group), K, offsets (host int*),
+    # vals (host float*), stream: K7, float32 only
+    "tps_dia_nmajor": (_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P),
+    # out (host int[4]) -> K7's geometry
+    "tps_dia_nmajor_geometry": (_P,),
     # block_row_offsets, block_col_indices, blocks, X, Y, num_rows,
     # num_cols, num_block_rows, block_rows, block_cols, L, stream
     "tps_bsr": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P),

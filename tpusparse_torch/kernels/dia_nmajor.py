@@ -19,6 +19,15 @@ padded lane count (``L``, the next of 4, 8, ..., 128 at or above the
 requested L) as the most columns it serves; K7 runs on the caller's
 columns, unpadded.
 
+K7's decomposition (``csrc/dia_nmajor.cu``): a thread owns one lane
+group of V values (``k7_lane_group``: 4, 2 or 1, from L and the
+pointers' alignment) in ``K7_ROWS`` rows; the L / V threads of a row are
+neighbours, a sub-block's ``K7_THREADS`` / (L / V) row slots hold
+consecutive rows, and a thread's rows are its slot and the slots one,
+two, ... sub-block widths further on; a CTA walks ``K7_SUB_BLOCKS``
+sub-blocks in order (``k7_geometry``). The constants mirror the source's
+and are checked against the library before each launch.
+
 The kernel is float32 only, as the JAX one is. The plain version serves
 CPU tensors only: a CUDA tensor launches K7 or raises.
 """
@@ -42,6 +51,41 @@ LANE_COUNTS = (4, 8, 16, 32, 64, 128)
 
 # K7 launches since the count was last reset (plain runs not counted).
 LAUNCHES = 0
+
+# K7's geometry, mirrored from csrc/dia_nmajor.cu (kThreads, kRows,
+# kSubBlocks, kVectorBytes) and checked against the library at every
+# launch: threads a CTA, rows a thread, sub-blocks a CTA walks, bytes of
+# the widest lane group.
+K7_THREADS = 256
+K7_ROWS = 4
+K7_SUB_BLOCKS = 1
+K7_VECTOR_BYTES = 16
+
+# the library's geometry, read once
+_lib_geometry: list = []
+
+
+def k7_lane_group(L: int, *tensors) -> int:
+    """V, the float32 values of a thread's lane group: the widest of
+    4, 2 and 1 that divides L and whose 4 V bytes align every tensor's
+    data pointer."""
+    for v in (K7_VECTOR_BYTES // 4, 2, 1):
+        if L % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors):
+            return v
+    return 1
+
+
+def k7_geometry(L: int, V: int) -> dict:
+    """K7's decomposition of an (n, L) block in lane groups of V values:
+    ``groups`` threads a row, ``runs`` row slots a sub-block of ``rows``
+    times as many rows (a thread's rows lie ``runs`` apart),
+    ``sub_blocks`` sub-blocks (``cta_rows`` rows) a CTA of ``threads``
+    threads."""
+    groups = L // V
+    runs = K7_THREADS // groups
+    return {"threads": K7_THREADS, "rows": K7_ROWS, "groups": groups,
+            "runs": runs, "sub_blocks": K7_SUB_BLOCKS,
+            "cta_rows": K7_SUB_BLOCKS * runs * K7_ROWS}
 
 
 def padded_lane_count(L: int) -> int:
@@ -132,20 +176,33 @@ def _check(D: DiaNMajorDevice, X: torch.Tensor) -> None:
             "needed")
 
 
+def _check_geometry(lib) -> None:
+    """Raise unless the library's K7 geometry is the mirror's."""
+    want = (K7_THREADS, K7_ROWS, K7_SUB_BLOCKS, K7_VECTOR_BYTES)
+    if not _lib_geometry:
+        out = (ctypes.c_int * len(want))()
+        lib.tps_dia_nmajor_geometry(ctypes.addressof(out))
+        _lib_geometry.append(tuple(out))
+    if _lib_geometry[0] != want:
+        raise RuntimeError(f"K7's geometry is {_lib_geometry[0]} in the "
+                           f"library, {want} in dia_nmajor.py")
+
+
 def _launch(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     B = D.band
     n, L = X.shape
     K = len(B.offsets)
+    lib = _build.library()
+    _check_geometry(lib)
     Y = torch.empty((n, L), dtype=X.dtype, device=X.device)
     offs = (ctypes.c_int * max(K, 1))(*B.offsets)
     vals = (ctypes.c_float * max(K, 1))(*B.vals_host)
-    lib = _build.library()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = lib.tps_dia_nmajor(B.mask.data_ptr(), X.data_ptr(),
-                                Y.data_ptr(), n, L, K,
-                                ctypes.addressof(offs),
+                                Y.data_ptr(), n, L, k7_lane_group(L, X, Y),
+                                K, ctypes.addressof(offs),
                                 ctypes.addressof(vals), stream)
     _build.check(rc, "tps_dia_nmajor")
     LAUNCHES += 1
