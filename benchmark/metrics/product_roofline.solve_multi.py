@@ -1,0 +1,8 @@
+"""product_roofline.solve_multi: ``product_roofline.solve`` of the blocked (L > 1) solve
+cells, which report ``solve_ms.multi``."""
+
+from pathlib import Path
+
+import harness
+
+read = harness.load_module(Path(__file__).with_name("product_roofline.solve.py")).read
