@@ -293,7 +293,8 @@ def test_port_sources_import_no_jax():
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, tpusparse_torch, tpusparse_torch.utils.carry, "
             "tpusparse_torch.bench.timing, tpusparse_torch.bench.models, "
-            "tpusparse_torch.ops.dia, tpusparse_torch.solvers.refine; "
+            "tpusparse_torch.ops.dia, tpusparse_torch.solvers.refine, "
+            "tpusparse_torch.utils.trace; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpusparse')]; "
             "assert not bad, bad")

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from tpusparse_torch.formats.csr import NUMPY_OF, value_dtype
+from tpusparse_torch.utils import trace
 
 
 def fill_estimate(csr, block_rows: int = 8, block_cols: int = 128) -> float:
@@ -131,12 +132,11 @@ class BcsrMatrix:
         float64, which keeps float64 host values unrounded)."""
         dtype = value_dtype(dtype)
 
-        def tensor(a, np_dtype):
-            return torch.from_numpy(np.array(a, dtype=np_dtype,
-                                             order="C")).to(device)
-
+        host = [np.array(self.block_row_offsets, dtype=np.int32, order="C"),
+                np.array(self.block_col_indices, dtype=np.int32, order="C"),
+                np.array(self.blocks, dtype=NUMPY_OF[dtype], order="C")]
+        with trace.span("plan.upload"):
+            offsets, cols, blocks = (torch.from_numpy(a).to(device)
+                                     for a in host)
         return BcsrMatrix(self.num_rows, self.num_cols, self.block_rows,
-                          self.block_cols,
-                          tensor(self.block_row_offsets, np.int32),
-                          tensor(self.block_col_indices, np.int32),
-                          tensor(self.blocks, NUMPY_OF[dtype]))
+                          self.block_cols, offsets, cols, blocks)

@@ -15,6 +15,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpusparse_torch.utils import trace
+
 INT32_MAX = 2**31 - 1
 
 # The value types the port's plans hold, and their numpy types.
@@ -136,12 +138,9 @@ class CsrMatrix:
                 f"nnz={self.nnz} does not fit int32 row offsets (< 2^31)")
         if max(self.num_rows, self.num_cols) > INT32_MAX:
             raise ValueError("dimensions must fit int32")
-        ro = np.asarray(self.row_offsets, dtype=np.int32)
-        ci = np.asarray(self.col_indices, dtype=np.int32)
-        va = np.asarray(self.values, dtype=NUMPY_OF[dtype])
-        return CsrMatrix(
-            self.num_rows, self.num_cols,
-            torch.from_numpy(np.ascontiguousarray(ro)).to(device),
-            torch.from_numpy(np.ascontiguousarray(ci)).to(device),
-            torch.from_numpy(np.ascontiguousarray(va)).to(device),
-        )
+        host = [np.ascontiguousarray(self.row_offsets, dtype=np.int32),
+                np.ascontiguousarray(self.col_indices, dtype=np.int32),
+                np.ascontiguousarray(self.values, dtype=NUMPY_OF[dtype])]
+        with trace.span("plan.upload"):
+            ro, ci, va = (torch.from_numpy(a).to(device) for a in host)
+        return CsrMatrix(self.num_rows, self.num_cols, ro, ci, va)

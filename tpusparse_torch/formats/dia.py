@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix
+from tpusparse_torch.utils import trace
 
 # Occupancy a diagonal needs (against num_rows) to be selected, and the
 # most diagonals selected; the same thresholds as the JAX package, so
@@ -44,6 +45,7 @@ class DiaHost:
 def diagonal_profile(csr):
     """(offsets, counts, lengths) for every populated diagonal
     ``off = col - row``; lengths are the in-bounds run lengths."""
+    trace.count("plan.nnz_scanned", csr.nnz)
     ro = np.asarray(csr.row_offsets).astype(np.int64)
     ci = np.asarray(csr.col_indices).astype(np.int64)
     n, m = csr.num_rows, csr.num_cols
@@ -73,6 +75,7 @@ def partition_dia(csr, offsets):
     """Split ``csr`` into (DiaHost over ``offsets``, remainder CSR).
     Duplicates on a diagonal accumulate; everything else keeps CSR
     order in the remainder."""
+    trace.count("plan.nnz_scanned", csr.nnz)
     ro = np.asarray(csr.row_offsets).astype(np.int64)
     ci = np.asarray(csr.col_indices).astype(np.int64)
     va = np.asarray(csr.values)
@@ -145,7 +148,8 @@ def to_device_dia(dia_host: DiaHost, device,
                         f"{plane_dtype}")
     host_dtype = np.float64 if plane_dtype == torch.float64 else np.float32
     planes = torch.from_numpy(
-        np.ascontiguousarray(dia_host.data, dtype=host_dtype))
+        np.ascontiguousarray(dia_host.data, dtype=host_dtype)).to(plane_dtype)
+    with trace.span("plan.upload"):
+        planes = planes.to(device).contiguous()
     return DiaDevice(dia_host.num_rows, dia_host.num_cols,
-                     tuple(int(o) for o in dia_host.offsets),
-                     planes.to(plane_dtype).to(device).contiguous())
+                     tuple(int(o) for o in dia_host.offsets), planes)

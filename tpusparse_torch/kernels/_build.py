@@ -24,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from tpusparse_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpusparse_torch"
 LIB_NAME = "libtpusparse_torch.so"
@@ -143,8 +145,14 @@ def build() -> Path:
     them."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib
+    if not lib.exists():
+        with trace.span("kernels.build"):
+            _compile(out_dir, lib)
+    return lib
+
+
+def _compile(out_dir: Path, lib: Path) -> None:
+    """Compile every unit into ``out_dir`` and link them into ``lib``."""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = os.getpid()
@@ -164,18 +172,18 @@ def build() -> Path:
     for obj in objs:
         obj.unlink()
     os.replace(tmp, lib)
-    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+        with trace.span("kernels.load"):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

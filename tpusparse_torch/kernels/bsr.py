@@ -28,6 +28,7 @@ import torch
 from tpusparse_torch.formats.bcsr import BcsrMatrix
 from tpusparse_torch.formats.csr import VALUE_DTYPES
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.utils import trace
 
 # K8 takes blocks of up to this many entries (br * bc); each thread's dot
 # product runs over at most bc of them per block.
@@ -37,6 +38,8 @@ MAX_BLOCK_ENTRIES = 1 << 20
 LAUNCHES = 0
 # K8d (float64) launches, counted apart from K8's.
 LAUNCHES_F64 = 0
+# the span of a launch, by value type
+SPANS = {torch.float32: "kernel.K8", torch.float64: "kernel.K8d"}
 
 
 def block_row_ids(A: BcsrMatrix) -> torch.Tensor:
@@ -121,7 +124,8 @@ def bsr_matmat(A: BcsrMatrix, X: torch.Tensor) -> torch.Tensor:
     any other device raises."""
     _check(A, X)
     if X.device.type == "cuda":
-        return _launch(A, X)
+        with trace.span(SPANS[X.dtype]):
+            return _launch(A, X)
     if X.device.type == "cpu":
         return bsr_spmm_plain(A, X)
     raise ValueError(f"no K8 path for device {X.device}")

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.utils import trace
 
 # KR launches since the count was last reset (CPU runs not counted).
 LAUNCHES = 0
@@ -45,25 +46,27 @@ def csr_reference_kernel(num_rows: int, row_offsets: torch.Tensor,
     L = X.shape[1]
     if num_rows == 0 or L == 0:
         return torch.zeros((num_rows, L), dtype=values.dtype, device=dev)
-    index64 = not (row_offsets.dtype == torch.int32
-                   and col_indices.dtype == torch.int32)
-    itype = torch.int64 if index64 else torch.int32
-    ro = row_offsets.to(itype).contiguous()
-    ci = col_indices.to(itype).contiguous()
-    v = values.contiguous()
-    Xc = X.to(values.dtype).contiguous()
-    Y = torch.empty((num_rows, L), dtype=values.dtype, device=dev)
     f64 = values.dtype == torch.float64
-    name = "tps_csr_reference_f64" if f64 else "tps_csr_reference"
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, name)(ro.data_ptr(), ci.data_ptr(), v.data_ptr(),
-                                Xc.data_ptr(), Y.data_ptr(), num_rows, L,
-                                int(index64), stream)
-    _build.check(rc, name)
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
-    return Y
+    with trace.span("kernel.KRd" if f64 else "kernel.KR"):
+        index64 = not (row_offsets.dtype == torch.int32
+                       and col_indices.dtype == torch.int32)
+        itype = torch.int64 if index64 else torch.int32
+        ro = row_offsets.to(itype).contiguous()
+        ci = col_indices.to(itype).contiguous()
+        v = values.contiguous()
+        Xc = X.to(values.dtype).contiguous()
+        Y = torch.empty((num_rows, L), dtype=values.dtype, device=dev)
+        name = "tps_csr_reference_f64" if f64 else "tps_csr_reference"
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = getattr(lib, name)(ro.data_ptr(), ci.data_ptr(),
+                                    v.data_ptr(), Xc.data_ptr(),
+                                    Y.data_ptr(), num_rows, L,
+                                    int(index64), stream)
+        _build.check(rc, name)
+        if f64:
+            LAUNCHES_F64 += 1
+        else:
+            LAUNCHES += 1
+        return Y

@@ -42,6 +42,7 @@ from tpusparse_torch.formats.dia import (
     plane_constants,
 )
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.utils import trace
 
 # Masked DIA packs one validity bit per plane into a 32-bit word per row.
 MASK_MAX_PLANES = 32
@@ -55,6 +56,13 @@ PLANES_LAUNCHES = 0
 # K1d and K5d (float64) launches, counted apart from their float32 twins'.
 LAUNCHES_F64 = 0
 PLANES_LAUNCHES_F64 = 0
+
+# The DIA launches (K1, K5 here, K7 in dia_nmajor.py) open no kernel.*
+# span of utils/trace.py, unlike the other kernels' launches. A solver
+# makes one every iteration on the host's path from the convergence
+# sync to the iteration's first kernel, and a span there added about 3
+# points of device idle to a profiled CG loop on HPCG's 27-point stencil
+# (H100).
 
 # ctypes scalar of K1's host coefficients, by operand type.
 _C_VALS = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -148,12 +156,11 @@ def from_mask_words(num_rows: int, num_cols: int, offsets, vals, words,
         raise ValueError("mask words / offsets / vals disagree in size")
     if len(offsets) > MASK_MAX_PLANES:
         raise ValueError(f"{len(offsets)} planes exceed {MASK_MAX_PLANES}")
-    return DiaStreamDevice(
-        num_rows, num_cols, offsets,
-        torch.from_numpy(vals.copy()).to(device),
-        torch.from_numpy(words.view(np.int32).copy()).to(device),
-        tuple(float(v) for v in vals),
-    )
+    host = [vals.copy(), words.view(np.int32).copy()]
+    with trace.span("plan.upload"):
+        vals_dev, mask = (torch.from_numpy(a).to(device) for a in host)
+    return DiaStreamDevice(num_rows, num_cols, offsets, vals_dev, mask,
+                           tuple(float(v) for v in vals))
 
 
 def to_device_dia_stream(dia_host, device,

@@ -52,6 +52,7 @@ import torch
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.spmm_merge import check_operands, scaled_product
 from tpusparse_torch.ops.reference import csr_matmat_plain
+from tpusparse_torch.utils import trace
 
 # C: the most nonzeros one thread group walks (a longer row is cut);
 # 256 of {256, 512, 1024} on the H100 (PERF.md §6).
@@ -61,6 +62,8 @@ ROW_CHUNK = 256
 LAUNCHES = 0
 # K4d (float64) launches, counted apart from K4's.
 LAUNCHES_F64 = 0
+# the span of a launch, by value type
+SPANS = {torch.float32: "kernel.K4", torch.float64: "kernel.K4d"}
 
 
 @dataclasses.dataclass
@@ -143,9 +146,10 @@ def to_device_row_split(csr, device, dtype=torch.float32) -> RowSplitDevice:
     values in ``dtype``, and their ``WorkRows``."""
     d = csr.to(device, dtype)
     t = work_rows(csr.row_offsets)
-    table = WorkRows(
-        t.pop("num_chunks"),
-        **{k: torch.from_numpy(v).to(device) for k, v in t.items()})
+    num_chunks = t.pop("num_chunks")
+    with trace.span("plan.upload"):
+        table = WorkRows(num_chunks, **{k: torch.from_numpy(v).to(device)
+                                        for k, v in t.items()})
     return RowSplitDevice(d.num_rows, d.num_cols, d.row_offsets,
                           d.col_indices, d.values, table)
 
@@ -223,7 +227,8 @@ def row_split_matmat(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
     any other device raises."""
     check_operands(A, X, "K4")
     if X.device.type == "cuda":
-        return _launch(A, X)
+        with trace.span(SPANS[X.dtype]):
+            return _launch(A, X)
     if X.device.type == "cpu":
         return spmm_row_split_plain(A, X)
     raise ValueError(f"no K4 path for device {X.device}")

@@ -31,11 +31,14 @@ import torch
 from tpusparse_torch.formats.csr import VALUE_DTYPES
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.ops.reference import csr_matvec_plain
+from tpusparse_torch.utils import trace
 
 # K2 launches since the count was last reset (plain runs not counted).
 LAUNCHES = 0
 # K2d (float64) launches, counted apart from K2's.
 LAUNCHES_F64 = 0
+# the span of a launch, by value type
+SPANS = {torch.float32: "kernel.K2", torch.float64: "kernel.K2d"}
 
 # Merge items per CTA tile of K2 and K2d (kThreads * kItems in
 # csrc/merge_spmv.cu, whose tps_merge_spmv_tile_items() must agree: every
@@ -88,10 +91,11 @@ def to_device_merge(csr, device, dtype=torch.float32) -> MergeDevice:
     """Merge plan of a host CsrMatrix: the CSR arrays on ``device``,
     values in ``dtype``, and K2's tile starts."""
     d = csr.to(device, dtype)
-    coords = merge_tile_coords(csr.row_offsets, csr.nnz)
+    coords = torch.from_numpy(merge_tile_coords(csr.row_offsets, csr.nnz))
+    with trace.span("plan.upload"):
+        coords = coords.to(device)
     return MergeDevice(d.num_rows, d.num_cols, d.row_offsets,
-                       d.col_indices, d.values,
-                       torch.from_numpy(coords).to(device))
+                       d.col_indices, d.values, coords)
 
 
 def spmv_merge_plain(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
@@ -179,7 +183,8 @@ def merge_matvec(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
     raises."""
     _check(A, x)
     if x.device.type == "cuda":
-        return _launch(A, x)
+        with trace.span(SPANS[x.dtype]):
+            return _launch(A, x)
     if x.device.type == "cpu":
         return spmv_merge_plain(A, x)
     raise ValueError(f"no K2 path for device {x.device}")

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.utils import trace
 
 # K6 launches since the count was last reset (plain runs not counted).
 LAUNCHES = 0
@@ -100,7 +101,8 @@ def permute_apply(perm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     a CPU tensor; any other device raises."""
     _check(perm, x)
     if x.device.type == "cuda":
-        return _launch(perm, x)
+        with trace.span("kernel.K6"):
+            return _launch(perm, x)
     if x.device.type == "cpu":
         return permute_plain(perm, x)
     raise ValueError(f"no K6 path for device {x.device}")

@@ -34,11 +34,14 @@ from tpusparse_torch.formats.csr import VALUE_DTYPES
 from tpusparse_torch.kernels import _build, merge_spmv
 from tpusparse_torch.kernels.merge_spmv import MergeDevice
 from tpusparse_torch.ops.reference import csr_matmat_plain
+from tpusparse_torch.utils import trace
 
 # K3 launches since the count was last reset (plain runs not counted).
 LAUNCHES = 0
 # K3d (float64) launches, counted apart from K3's.
 LAUNCHES_F64 = 0
+# the span of a launch, by value type
+SPANS = {torch.float32: "kernel.K3", torch.float64: "kernel.K3d"}
 
 # K3's geometry, mirrored from csrc/merge_spmm.cu: threads per consume
 # CTA (kBlock), threads per lane group, at most (kMaxGroup), and the bytes
@@ -152,7 +155,8 @@ def merge_matmat(A: MergeDevice, X: torch.Tensor) -> torch.Tensor:
     any other device raises."""
     check_operands(A, X, "K3")
     if X.device.type == "cuda":
-        return _launch(A, X)
+        with trace.span(SPANS[X.dtype]):
+            return _launch(A, X)
     if X.device.type == "cpu":
         return spmm_merge_plain(A, X)
     raise ValueError(f"no K3 path for device {X.device}")

@@ -37,6 +37,7 @@ import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix
 from tpusparse_torch.kernels.permute import build_permute_plan, permute_apply
+from tpusparse_torch.utils import trace
 
 # reorder='auto': apply RCM only when its bandwidth undercuts a quarter
 # of the original's by at least a 128-column band (the JAX package's
@@ -161,11 +162,15 @@ class ReorderedPlan:
 def _wrap_reordered(csr, perm, strategy, dtype, L, order, device):
     from tpusparse_torch.ops.spmv import plan_matrix
 
-    inner = plan_matrix(permute_symmetric(csr, perm), strategy=strategy,
-                        dtype=dtype, L=L, device=device)
-    return ReorderedPlan(csr.num_rows, csr.num_cols, csr.nnz, inner,
-                         build_permute_plan(perm, device),
-                         build_permute_plan(np.argsort(perm), device), order)
+    with trace.span("plan.reorder"):
+        permuted = permute_symmetric(csr, perm)
+    inner = plan_matrix(permuted, strategy=strategy, dtype=dtype, L=L,
+                        device=device)
+    with trace.span("plan.reorder"):
+        fwd = build_permute_plan(perm, device)
+        inv = build_permute_plan(np.argsort(perm), device)
+    return ReorderedPlan(csr.num_rows, csr.num_cols, csr.nnz, inner, fwd,
+                         inv, order)
 
 
 def plan_reorder(csr: CsrMatrix, strategy="auto", dtype=None,
@@ -184,12 +189,12 @@ def plan_reorder(csr: CsrMatrix, strategy="auto", dtype=None,
     if csr.num_rows != csr.num_cols or csr.nnz == 0:
         return plan_matrix(csr, strategy=strategy, dtype=dtype, L=L,
                            device=device)
-    if order == "degree":
-        return _wrap_reordered(csr, degree_order(csr), strategy, dtype, L,
-                               "degree", device)
-    perm = rcm_order(csr)
-    if order == "auto":
-        if bandwidth(csr, perm) + RCM_SLACK > RCM_GAIN * bandwidth(csr):
-            return plan_matrix(csr, strategy=strategy, dtype=dtype, L=L,
-                               device=device)
-    return _wrap_reordered(csr, perm, strategy, dtype, L, "rcm", device)
+    with trace.span("plan.reorder"):
+        perm = degree_order(csr) if order == "degree" else rcm_order(csr)
+        unpermuted = (order == "auto" and bandwidth(csr, perm) + RCM_SLACK
+                      > RCM_GAIN * bandwidth(csr))
+    if unpermuted:
+        return plan_matrix(csr, strategy=strategy, dtype=dtype, L=L,
+                           device=device)
+    return _wrap_reordered(csr, perm, strategy, dtype, L,
+                           "rcm" if order == "auto" else order, device)

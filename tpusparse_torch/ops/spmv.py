@@ -110,6 +110,7 @@ from tpusparse_torch.ops.dia import spmm_dia, spmv_dia
 from tpusparse_torch.ops.hybrid import HybridPlan, spmm_hybrid, spmv_hybrid
 from tpusparse_torch.ops.reference import spmm_reference, spmv_reference
 from tpusparse_torch.ops.reorder import ReorderedPlan
+from tpusparse_torch.utils import trace
 
 
 class SpmvStrategy(enum.Enum):
@@ -159,31 +160,36 @@ def plan_matrix(csr: CsrMatrix, strategy="auto", dtype=None,
     the JAX package's padded lane count for L. ``reorder`` ('rcm',
     'degree' or 'auto') plans a symmetric permutation of the matrix
     (``ops/reorder.plan_reorder``)."""
-    if reorder:
-        from tpusparse_torch.ops.reorder import plan_reorder
+    with trace.span("plan_matrix"):
+        if reorder:
+            from tpusparse_torch.ops.reorder import plan_reorder
 
-        return plan_reorder(csr, strategy=strategy, dtype=dtype, L=L,
-                            order=reorder, device=device)
-    strategy = SpmvStrategy.parse(strategy)
-    dtype = value_dtype(host_value_dtype(csr) if dtype is None else dtype)
-    if int(L) < 1:
-        raise ValueError(f"L={L}: the number of right-hand sides is >= 1")
-    if strategy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"strategy '{strategy.value}': {_NOT_PORTED[strategy]}")
-    if strategy == SpmvStrategy.REFERENCE:
-        return csr.to(device, dtype)
-    if strategy == SpmvStrategy.ROW_SPLIT:
-        return to_device_row_split(csr, device, dtype)
-    if strategy == SpmvStrategy.NMAJOR:
-        return _plan_nmajor(csr, int(L), device, dtype)
-    if strategy == SpmvStrategy.BSR:
-        return BcsrMatrix.from_csr(csr, *BSR_BLOCK).to(device, dtype)
-    if strategy in (SpmvStrategy.AUTO, SpmvStrategy.DIA):
-        plan = _try_plan_dia(csr, strategy, device, dtype)
-        if plan is not None:
-            return plan
-    return to_device_merge(csr, device, dtype)
+            return plan_reorder(csr, strategy=strategy, dtype=dtype, L=L,
+                                order=reorder, device=device)
+        strategy = SpmvStrategy.parse(strategy)
+        dtype = value_dtype(host_value_dtype(csr) if dtype is None
+                            else dtype)
+        if int(L) < 1:
+            raise ValueError(
+                f"L={L}: the number of right-hand sides is >= 1")
+        if strategy in _NOT_PORTED:
+            raise NotImplementedError(
+                f"strategy '{strategy.value}': {_NOT_PORTED[strategy]}")
+        if strategy == SpmvStrategy.NMAJOR:
+            return _plan_nmajor(csr, int(L), device, dtype)
+        if strategy in (SpmvStrategy.AUTO, SpmvStrategy.DIA):
+            plan = _try_plan_dia(csr, strategy, device, dtype)
+            if plan is not None:
+                return plan
+        with trace.span("plan.operand"):
+            if strategy == SpmvStrategy.REFERENCE:
+                return csr.to(device, dtype)
+            if strategy == SpmvStrategy.ROW_SPLIT:
+                return to_device_row_split(csr, device, dtype)
+            if strategy == SpmvStrategy.BSR:
+                return BcsrMatrix.from_csr(csr, *BSR_BLOCK).to(device,
+                                                               dtype)
+            return to_device_merge(csr, device, dtype)
 
 
 def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device, dtype):
@@ -193,21 +199,25 @@ def _try_plan_dia(csr: CsrMatrix, strategy: SpmvStrategy, device, dtype):
     other band keeps its value planes (K5, K5d)."""
     if csr.nnz == 0:
         return None
-    offsets = select_diagonals(csr)
-    if offsets.size == 0:
-        return None
-    all_off, counts, _ = diagonal_profile(csr)
-    covered = int(counts[np.isin(all_off, offsets)].sum())
-    if (strategy != SpmvStrategy.DIA
-            and covered < DIA_MIN_COVERAGE * csr.nnz):
-        return None
-    dia_host, rest = partition_dia(csr, offsets)
-    if csr.num_rows == csr.num_cols and _maskable(dia_host)[1]:
-        dev = to_device_dia_stream(dia_host, device, dtype)
-    else:
-        dev = to_device_dia(dia_host, device, plane_dtype=dtype)
-    rest_plan = (to_device_merge(rest, device, dtype) if rest.nnz > 0
-                 else None)
+    with trace.span("plan.select"):
+        offsets = select_diagonals(csr)
+        if offsets.size == 0:
+            return None
+        all_off, counts, _ = diagonal_profile(csr)
+        covered = int(counts[np.isin(all_off, offsets)].sum())
+        if (strategy != SpmvStrategy.DIA
+                and covered < DIA_MIN_COVERAGE * csr.nnz):
+            return None
+    with trace.span("plan.partition"):
+        dia_host, rest = partition_dia(csr, offsets)
+        masked = csr.num_rows == csr.num_cols and _maskable(dia_host)[1]
+    with trace.span("plan.operand"):
+        if masked:
+            dev = to_device_dia_stream(dia_host, device, dtype)
+        else:
+            dev = to_device_dia(dia_host, device, plane_dtype=dtype)
+        rest_plan = (to_device_merge(rest, device, dtype) if rest.nnz > 0
+                     else None)
     return HybridPlan(dev, rest_plan, csr.nnz)
 
 
@@ -225,21 +235,25 @@ def _plan_nmajor(csr: CsrMatrix, L: int, device, dtype) -> HybridPlan:
             "strategy='dia' for single-RHS masked streams")
     if csr.nnz == 0:
         raise ValueError("strategy='nmajor': matrix has no nonzeros")
-    offsets = select_diagonals(csr)
+    with trace.span("plan.select"):
+        offsets = select_diagonals(csr)
     if offsets.size == 0:
         raise ValueError(
             "strategy='nmajor': no dense diagonals selected "
             "(formats.dia.select_diagonals) — the n-major kernel needs a "
             "constant-coefficient diagonal operator")
-    dia_host, rest = partition_dia(csr, offsets)
+    with trace.span("plan.partition"):
+        dia_host, rest = partition_dia(csr, offsets)
+        masked = _maskable(dia_host)[1]
     if dtype == torch.float64:
         raise ValueError("strategy='nmajor' is fp32-only")
-    if csr.num_rows != csr.num_cols or not _maskable(dia_host)[1]:
+    if csr.num_rows != csr.num_cols or not masked:
         raise ValueError(
             "strategy='nmajor' requires a square constant-coefficient "
             "(maskable) diagonal operator")
-    dev = to_device_dia_nmajor(dia_host, L, device)
-    rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
+    with trace.span("plan.operand"):
+        dev = to_device_dia_nmajor(dia_host, L, device)
+        rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
     return HybridPlan(dev, rest_plan, csr.nnz)
 
 
@@ -259,19 +273,23 @@ def plan_dia_bf16(csr: CsrMatrix, L: int = 1, device="cuda") -> HybridPlan:
         raise ValueError(f"L={L}: the number of right-hand sides is >= 1")
     if csr.num_rows != csr.num_cols:
         raise ValueError("plan_dia_bf16: square matrices only")
-    offsets = select_diagonals(csr)
+    with trace.span("plan.select"):
+        offsets = select_diagonals(csr)
     if offsets.size == 0:
         raise ValueError(
             "plan_dia_bf16: no dense diagonals selected — the bf16-plane "
             "plan needs a diagonal-structured operator")
-    dia_host, rest = partition_dia(csr, offsets)
-    if _maskable(dia_host)[1]:
+    with trace.span("plan.partition"):
+        dia_host, rest = partition_dia(csr, offsets)
+        masked = _maskable(dia_host)[1]
+    if masked:
         warnings.warn(
             "plan_dia_bf16: the operator is constant-coefficient — the "
             "exact masked plan (strategy='dia') reads 4 B/row and beats "
             "bf16 value planes; proceeding as requested", stacklevel=2)
-    dev = to_device_dia(dia_host, device, plane_dtype=torch.bfloat16)
-    rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
+    with trace.span("plan.operand"):
+        dev = to_device_dia(dia_host, device, plane_dtype=torch.bfloat16)
+        rest_plan = to_device_merge(rest, device) if rest.nnz > 0 else None
     return HybridPlan(dev, rest_plan, csr.nnz)
 
 
@@ -353,58 +371,61 @@ def spmv(A, x, alpha=1.0, beta=0.0, y=None, strategy="auto"):
     a host ``CsrMatrix`` (``device_operand``). ``strategy`` is the JAX
     package's argument: validated only, since on a plan the product
     does not depend on it."""
-    SpmvStrategy.parse(strategy)
-    A = device_operand(A, x)
-    if isinstance(A, ReorderedPlan):
-        xp = A.apply_perm(x.to(_vector_dtype(A)))
-        y_new = A.apply_inv(spmv(A.inner, xp, alpha=alpha))
-        return y_new if beta == 0.0 or y is None else y_new + beta * y
-    if isinstance(A, HybridPlan):
-        return spmv_hybrid(A, x, alpha=alpha, beta=beta, y=y)
-    if isinstance(A, DiaNMajorDevice):
-        return spmv_dia_nmajor(A, x, alpha=alpha, beta=beta, y=y)
-    if isinstance(A, DiaStreamDevice):
-        return spmv_dia_stream(A, x, alpha=alpha, beta=beta, y=y)
-    if isinstance(A, DiaDevice):
-        return spmv_dia(A, x, alpha=alpha, beta=beta, y=y)
-    if isinstance(A, MergeDevice):
-        return spmv_merge(A, x, alpha=alpha, beta=beta, y=y)
-    if isinstance(A, RowSplitDevice):
-        return spmv_ell(A, x, alpha=alpha, beta=beta, y=y)
-    if isinstance(A, BcsrMatrix):
-        return bsr_spmv(A, x, alpha=alpha, beta=beta, y=y)
-    if isinstance(A, CsrMatrix):
-        return spmv_reference(A, x, alpha=alpha, beta=beta, y=y)
-    raise TypeError(f"not a plan: {type(A).__name__}")
+    with trace.span("spmv"):
+        SpmvStrategy.parse(strategy)
+        A = device_operand(A, x)
+        if isinstance(A, ReorderedPlan):
+            xp = A.apply_perm(x.to(_vector_dtype(A)))
+            y_new = A.apply_inv(spmv(A.inner, xp, alpha=alpha))
+            return y_new if beta == 0.0 or y is None else y_new + beta * y
+        if isinstance(A, HybridPlan):
+            return spmv_hybrid(A, x, alpha=alpha, beta=beta, y=y)
+        if isinstance(A, DiaNMajorDevice):
+            return spmv_dia_nmajor(A, x, alpha=alpha, beta=beta, y=y)
+        if isinstance(A, DiaStreamDevice):
+            return spmv_dia_stream(A, x, alpha=alpha, beta=beta, y=y)
+        if isinstance(A, DiaDevice):
+            return spmv_dia(A, x, alpha=alpha, beta=beta, y=y)
+        if isinstance(A, MergeDevice):
+            return spmv_merge(A, x, alpha=alpha, beta=beta, y=y)
+        if isinstance(A, RowSplitDevice):
+            return spmv_ell(A, x, alpha=alpha, beta=beta, y=y)
+        if isinstance(A, BcsrMatrix):
+            return bsr_spmv(A, x, alpha=alpha, beta=beta, y=y)
+        if isinstance(A, CsrMatrix):
+            return spmv_reference(A, x, alpha=alpha, beta=beta, y=y)
+        raise TypeError(f"not a plan: {type(A).__name__}")
 
 
 def spmm(A, X, alpha=1.0, beta=0.0, Y=None, strategy="auto"):
     """Y = alpha * A @ X + beta * Y for any plan of ``plan_matrix`` (or
     a host ``CsrMatrix``), X of shape (num_cols, L); a 1-D X (and Y) is
     taken as L = 1 and the result is 1-D. ``strategy`` as in ``spmv``."""
-    SpmvStrategy.parse(strategy)
-    A = device_operand(A, X)
-    if X.dim() == 1:
-        Y2 = None if Y is None else Y.reshape(-1, 1)
-        return spmm(A, X.reshape(-1, 1), alpha=alpha, beta=beta, Y=Y2)[:, 0]
-    if isinstance(A, ReorderedPlan):
-        Xp = A.apply_perm(X.to(_vector_dtype(A)))
-        Y_new = A.apply_inv(spmm(A.inner, Xp, alpha=alpha))
-        return Y_new if beta == 0.0 or Y is None else Y_new + beta * Y
-    if isinstance(A, HybridPlan):
-        return spmm_hybrid(A, X, alpha=alpha, beta=beta, Y=Y)
-    if isinstance(A, DiaNMajorDevice):
-        return spmm_dia_nmajor(A, X, alpha=alpha, beta=beta, Y=Y)
-    if isinstance(A, DiaStreamDevice):
-        return spmm_dia_stream(A, X, alpha=alpha, beta=beta, Y=Y)
-    if isinstance(A, DiaDevice):
-        return spmm_dia(A, X, alpha=alpha, beta=beta, Y=Y)
-    if isinstance(A, MergeDevice):
-        return spmm_merge(A, X, alpha=alpha, beta=beta, Y=Y)
-    if isinstance(A, RowSplitDevice):
-        return spmm_ell(A, X, alpha=alpha, beta=beta, Y=Y)
-    if isinstance(A, BcsrMatrix):
-        return bsr_spmm(A, X, alpha=alpha, beta=beta, Y=Y)
-    if isinstance(A, CsrMatrix):
-        return spmm_reference(A, X, alpha=alpha, beta=beta, Y=Y)
-    raise TypeError(f"not a plan: {type(A).__name__}")
+    with trace.span("spmm"):
+        SpmvStrategy.parse(strategy)
+        A = device_operand(A, X)
+        if X.dim() == 1:
+            Y2 = None if Y is None else Y.reshape(-1, 1)
+            return spmm(A, X.reshape(-1, 1), alpha=alpha, beta=beta,
+                        Y=Y2)[:, 0]
+        if isinstance(A, ReorderedPlan):
+            Xp = A.apply_perm(X.to(_vector_dtype(A)))
+            Y_new = A.apply_inv(spmm(A.inner, Xp, alpha=alpha))
+            return Y_new if beta == 0.0 or Y is None else Y_new + beta * Y
+        if isinstance(A, HybridPlan):
+            return spmm_hybrid(A, X, alpha=alpha, beta=beta, Y=Y)
+        if isinstance(A, DiaNMajorDevice):
+            return spmm_dia_nmajor(A, X, alpha=alpha, beta=beta, Y=Y)
+        if isinstance(A, DiaStreamDevice):
+            return spmm_dia_stream(A, X, alpha=alpha, beta=beta, Y=Y)
+        if isinstance(A, DiaDevice):
+            return spmm_dia(A, X, alpha=alpha, beta=beta, Y=Y)
+        if isinstance(A, MergeDevice):
+            return spmm_merge(A, X, alpha=alpha, beta=beta, Y=Y)
+        if isinstance(A, RowSplitDevice):
+            return spmm_ell(A, X, alpha=alpha, beta=beta, Y=Y)
+        if isinstance(A, BcsrMatrix):
+            return bsr_spmm(A, X, alpha=alpha, beta=beta, Y=Y)
+        if isinstance(A, CsrMatrix):
+            return spmm_reference(A, X, alpha=alpha, beta=beta, Y=Y)
+        raise TypeError(f"not a plan: {type(A).__name__}")

@@ -51,7 +51,10 @@ history in float64 end to end.
 
 The loops are eager: every iteration runs the plan's kernel and BLAS-1
 on the device and makes one host sync, to read the convergence
-test. The JAX package's plan baking and its XLA matvec swap are an
+test. A solve is one ``cg.solve`` span of ``utils/trace.py``; each pass
+of its loop a ``cg.test`` span (the test and its sync), then, unless the
+test ends the loop, a ``cg.iteration`` span (the product and BLAS-1
+issued). The JAX package's plan baking and its XLA matvec swap are an
 XLA-TPU workaround and have no counterpart. CUDA graphs over blocks of
 iterations are later work (ROADMAP A7b).
 """
@@ -86,6 +89,7 @@ from tpusparse_torch.ops.spmv import (
     spmm,
     spmv,
 )
+from tpusparse_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -113,40 +117,45 @@ def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
     and ``bake`` is ignored (plan baking is an XLA-TPU device). A host
     ``CsrMatrix`` runs the reference product on ``b``'s device, in
     ``b``'s type."""
-    SpmvStrategy.parse(strategy)
-    A = device_operand(A, b)
-    if isinstance(A, ReorderedPlan) and x0 is None and matvec is None:
-        res = cg_solve(A.inner, A.apply_perm(b), max_iters, tolerance,
-                       record_history=record_history)
-        return dataclasses.replace(res, x=A.apply_inv(res.x))
-    mv = matvec if matvec is not None else (lambda v: spmv(A, v))
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = b if x0 is None else b - mv(x)
-    p = r
-    rs = dot_single(r, r)
-    b_norm = torch.sqrt(dot_single(b, b))
-    b_norm = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
-    threshold = b_norm * tolerance
-    zero = torch.zeros_like(rs)
-    hist = torch.full((max_iters if record_history else 0,), float("nan"),
-                      dtype=b.dtype, device=b.device)
-    i = 0
-    while i < max_iters and bool(torch.sqrt(rs) >= threshold):
-        Ap = mv(p)
-        pAp = dot_single(p, Ap)
-        alpha = torch.where(pAp == 0, zero, rs / pAp)
-        x = axpy_single(x, alpha, p)
-        r = axpy_single(r, -alpha, Ap)
-        rs_new = dot_single(r, r)
-        if record_history:
-            hist[i] = torch.sqrt(rs_new) / b_norm
-        beta = torch.where(rs == 0, zero, rs_new / rs)
-        p = update_p_single(r, beta, p)
-        rs = rs_new
-        i += 1
-    rel = torch.sqrt(rs) / b_norm
-    return CgResult(x=x, iterations=i, converged=bool(rel < tolerance),
-                    residual=float(rel), history=hist)
+    with trace.span("cg.solve"):
+        SpmvStrategy.parse(strategy)
+        A = device_operand(A, b)
+        if isinstance(A, ReorderedPlan) and x0 is None and matvec is None:
+            res = cg_solve(A.inner, A.apply_perm(b), max_iters, tolerance,
+                           record_history=record_history)
+            return dataclasses.replace(res, x=A.apply_inv(res.x))
+        mv = matvec if matvec is not None else (lambda v: spmv(A, v))
+        x = torch.zeros_like(b) if x0 is None else x0
+        r = b if x0 is None else b - mv(x)
+        p = r
+        rs = dot_single(r, r)
+        b_norm = torch.sqrt(dot_single(b, b))
+        b_norm = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
+        threshold = b_norm * tolerance
+        zero = torch.zeros_like(rs)
+        hist = torch.full((max_iters if record_history else 0,), float("nan"),
+                          dtype=b.dtype, device=b.device)
+        i = 0
+        while i < max_iters:
+            with trace.span("cg.test"):
+                if not bool(torch.sqrt(rs) >= threshold):
+                    break
+            with trace.span("cg.iteration"):
+                Ap = mv(p)
+                pAp = dot_single(p, Ap)
+                alpha = torch.where(pAp == 0, zero, rs / pAp)
+                x = axpy_single(x, alpha, p)
+                r = axpy_single(r, -alpha, Ap)
+                rs_new = dot_single(r, r)
+                if record_history:
+                    hist[i] = torch.sqrt(rs_new) / b_norm
+                beta = torch.where(rs == 0, zero, rs_new / rs)
+                p = update_p_single(r, beta, p)
+                rs = rs_new
+            i += 1
+        rel = torch.sqrt(rs) / b_norm
+        return CgResult(x=x, iterations=i, converged=bool(rel < tolerance),
+                        residual=float(rel), history=hist)
 
 
 def cg_solve_multi(A, B: torch.Tensor, max_iters: int = 10000,
@@ -161,30 +170,31 @@ def cg_solve_multi(A, B: torch.Tensor, max_iters: int = 10000,
     ``cg_solve``."""
     if B.dim() != 2:
         raise ValueError(f"B must be (n, L), got {tuple(B.shape)}")
-    SpmvStrategy.parse(strategy)
-    A = device_operand(A, B)
-    if matmat is None and isinstance(A, ReorderedPlan):
-        res = cg_solve_multi(A.inner, A.apply_perm(B), max_iters, tolerance,
-                             record_history=record_history)
-        return dataclasses.replace(res, x=A.apply_inv(res.x))
-    if matmat is None:
-        matmat = _nmajor_callable(A, B)
-    if matmat is not None:
+    with trace.span("cg.solve"):
+        SpmvStrategy.parse(strategy)
+        A = device_operand(A, B)
+        if matmat is None and isinstance(A, ReorderedPlan):
+            res = cg_solve_multi(A.inner, A.apply_perm(B), max_iters,
+                                 tolerance, record_history=record_history)
+            return dataclasses.replace(res, x=A.apply_inv(res.x))
+        if matmat is None:
+            matmat = _nmajor_callable(A, B)
+        if matmat is not None:
+            X, i, converged, rel, hist = _cg_multi_loop(
+                matmat, B, 1, max_iters, tolerance, record_history)
+            return CgResult(x=X, iterations=i, converged=converged,
+                            residual=rel, history=hist)
+        mm_t = _dia_t_callable(A)
+        if mm_t is not None:
+            XT, i, converged, rel, hist = _cg_multi_loop(
+                mm_t, B.T.contiguous(), 0, max_iters, tolerance,
+                record_history)
+            return CgResult(x=XT.T.contiguous(), iterations=i,
+                            converged=converged, residual=rel, history=hist)
         X, i, converged, rel, hist = _cg_multi_loop(
-            matmat, B, 1, max_iters, tolerance, record_history)
-        return CgResult(x=X, iterations=i, converged=converged,
-                        residual=rel, history=hist)
-    mm_t = _dia_t_callable(A)
-    if mm_t is not None:
-        XT, i, converged, rel, hist = _cg_multi_loop(
-            mm_t, B.T.contiguous(), 0, max_iters, tolerance,
-            record_history)
-        return CgResult(x=XT.T.contiguous(), iterations=i, converged=converged,
-                        residual=rel, history=hist)
-    X, i, converged, rel, hist = _cg_multi_loop(
-        lambda P: spmm(A, P), B, 1, max_iters, tolerance, record_history)
-    return CgResult(x=X, iterations=i, converged=converged, residual=rel,
-                    history=hist)
+            lambda P: spmm(A, P), B, 1, max_iters, tolerance, record_history)
+        return CgResult(x=X, iterations=i, converged=converged, residual=rel,
+                        history=hist)
 
 
 def _dia_t_callable(A):
@@ -250,22 +260,26 @@ def _cg_multi_loop(matmat, B, lane_dim, max_iters, tolerance,
     hist = torch.full((max_iters if record_history else 0,), float("nan"),
                       dtype=B.dtype, device=B.device)
     i = 0
-    while i < max_iters and not bool(converged.all()):
-        AP = matmat(P)
-        pAp = dot(P, AP)
-        alpha = torch.where(converged | (pAp == 0), zero, rho_old / pAp)
-        X = axpy(X, alpha, P)
-        R = axpy(R, -alpha, AP)
-        rs = dot(R, R)
-        rel = torch.sqrt(rs) / b_norms
-        converged = converged | (rel < tolerance)
-        if record_history:
-            hist[i] = torch.max(rel)
-        Z = prec(R)
-        rho_new = rs if precond is None else dot(R, Z)
-        beta = torch.where(converged | (rho_old == 0), zero,
-                           rho_new / rho_old)
-        P = update(Z, beta, P)
-        rho_old = rho_new
+    while i < max_iters:
+        with trace.span("cg.test"):
+            if bool(converged.all()):
+                break
+        with trace.span("cg.iteration"):
+            AP = matmat(P)
+            pAp = dot(P, AP)
+            alpha = torch.where(converged | (pAp == 0), zero, rho_old / pAp)
+            X = axpy(X, alpha, P)
+            R = axpy(R, -alpha, AP)
+            rs = dot(R, R)
+            rel = torch.sqrt(rs) / b_norms
+            converged = converged | (rel < tolerance)
+            if record_history:
+                hist[i] = torch.max(rel)
+            Z = prec(R)
+            rho_new = rs if precond is None else dot(R, Z)
+            beta = torch.where(converged | (rho_old == 0), zero,
+                               rho_new / rho_old)
+            P = update(Z, beta, P)
+            rho_old = rho_new
         i += 1
     return X, i, converged, torch.sqrt(rs) / b_norms, hist

@@ -1,1 +1,1 @@
-"""Result comparison and carrying JAX plans across to the port."""
+"""Result comparison, carrying JAX plans to the port, and the tracer."""
