@@ -45,11 +45,18 @@ from tpusparse_torch.kernels import (
 )
 from tpusparse_torch.ops.reference import csr_matmat, csr_matvec
 from tpusparse_torch.ops.reorder import ReorderedPlan
+from tpusparse_torch.utils import trace
+from test_torch_cg_lookahead import (
+    assert_same_solve,
+    eager_cg,
+    lookahead_counts,
+)
 from test_torch_dia_masked_tiles import K1_CASES, emulate_k1
 from test_torch_dia_planes_tiles import K5_CASES, emulate_k5
 from test_torch_merge_spmm_tiles import K3_CASES, emulate_k3, integer_valued
 from test_torch_nmajor_tiles import emulate_k7
 from test_torch_permute_tiles import emulate_k6
+from test_torch_trace import _hpcg27, tracer  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.cuda
 
@@ -312,6 +319,29 @@ def test_cg_on_card_matches_cpu(cuda):
     assert torch.linalg.norm(r.x.cpu() - r_cpu.x) \
         <= 1e-4 * torch.linalg.norm(r_cpu.x)
 
+
+@pytest.mark.parametrize("max_iters", [500, 6])
+def test_cg_lookahead_on_card_equals_the_eager_loop(cuda, tracer,
+                                                    max_iters):
+    """``cg_solve`` on K1d, reading each test one iteration late, gives
+    the eager loop's answers bit for bit: the same kernels on the same
+    data in the same order, the body issued ahead dropped. A solve that
+    its test ends launches K1d once more than it iterates."""
+    plan = plan_matrix(_hpcg27(8), device=cuda)          # float64: K1d
+    b = _x64(3, cuda, (512,))
+    before = dia_stream.LAUNCHES_F64
+    eager = eager_cg(plan, b, max_iters, 1e-10, record_history=True)
+    mid = dia_stream.LAUNCHES_F64
+    trace.take()
+    res = cg_solve(plan, b, max_iters, 1e-10, record_history=True)
+    _, counters = trace.take()
+    assert_same_solve(res, eager)
+    assert res.converged == (max_iters == 500)
+    ahead, discarded, _ = lookahead_counts(res, max_iters)
+    assert sum(counters.get("cg.ahead", {}).values()) == ahead
+    assert sum(counters.get("cg.discarded", {}).values()) == discarded
+    assert mid - before == res.iterations > 0
+    assert dia_stream.LAUNCHES_F64 - mid == res.iterations + discarded
 
 def test_no_fallback_on_cuda_tensors(cuda):
     csr = gen.make_laplacian_grid2d(4).to_csr()

@@ -117,22 +117,27 @@ def _solve(kind, tol, max_iters):
 @pytest.mark.parametrize("max_iters", [120, 3])
 def test_one_iteration_span_per_iteration(tracer, kind, max_iters):
     res = _solve(kind, 1e-8, max_iters)
-    spans, _ = trace.take()
+    spans, counters = trace.take()
     converged = bool(torch.as_tensor(res.converged).all())
     assert converged == (max_iters > 3)
     assert _names(spans, name="cg.solve", parent=None) == ["cg.solve"]
+    # cg_solve issues the next body before it reads the test that ends
+    # the loop: that body opens its span, then is discarded
+    discarded = sum(counters.get("cg.discarded", {}).values())
+    assert discarded == (1 if kind == "cg_solve" and converged else 0)
+    bodies = res.iterations + discarded
     iters = _names(spans, name="cg.iteration")
     tests = _names(spans, name="cg.test")
-    assert len(iters) == res.iterations > 0
+    assert len(iters) == bodies and res.iterations > 0
     assert len(tests) == res.iterations + (1 if converged else 0)
-    # one product call an iteration, below it the product a hybrid plan
-    # nests for its diagonal part (cg_solve's plan is one)
+    # one product call a body, below it the product a hybrid plan nests
+    # for its diagonal part (cg_solve's plan is one)
     by_id = {s.id: s for s in spans}
     products = [s for s in spans if s.name in ("spmv", "spmm")]
     calls = [p for p in products if by_id[p.parent].name == "cg.iteration"]
-    assert len(calls) == (0 if kind == "multi_dia" else res.iterations)
+    assert len(calls) == (0 if kind == "multi_dia" else bodies)
     nested = [p for p in products if p not in calls]
-    assert len(nested) == (res.iterations if kind == "cg_solve" else 0)
+    assert len(nested) == (bodies if kind == "cg_solve" else 0)
     assert all(by_id[p.parent] in calls for p in nested)
 
 
@@ -270,8 +275,9 @@ def cuda():
 def test_kernel_spans_on_the_card(tracer, cuda):
     """A CG iteration on the hybrid plan opens 4 spans: the test, the
     body, the product and the hybrid's diagonal part, whose K1d launch
-    opens none; on the (L, n) path 2. A merge plan's product call opens
-    2: its one child is its kernel's launch."""
+    opens none, and ``cg_solve``'s discarded body 3 more; on the (L, n)
+    path 2. A merge plan's product call opens 2: its one child is its
+    kernel's launch."""
     plan = plan_matrix(_hpcg27(6), device=cuda)            # K1d
     rmat = plan_matrix(gen.make_rmat(12).to_csr(), dtype=np.float32,
                        device=cuda)                         # K2, K3
@@ -281,15 +287,20 @@ def test_kernel_spans_on_the_card(tracer, cuda):
     x = _b(rmat.num_cols).float().to(cuda)
     spmv(rmat, x)
     spmm(rmat, torch.stack([x, x], 1))
-    spans, _ = trace.take()
+    spans, counters = trace.take()
     children = {}
     for s in spans:
         children.setdefault(s.parent, []).append(s.name)
     solves = [s for s in spans if s.name == "cg.solve"]
     for solve, r, product in zip(solves, (res, multi), ("spmv", None)):
+        # cg_solve's body issued ahead of the test that ends the loop
+        # opens its span, then is discarded
+        discarded = counters.get("cg.discarded", {}).get(solve.id, 0)
+        assert discarded == (1 if product else 0)
         per_iter = [s for s in spans if s.root == solve.id
                     and s.name == "cg.iteration"]
-        assert len(per_iter) == r.iterations > 0
+        assert len(per_iter) == r.iterations + discarded
+        assert r.iterations > 0
         for it in per_iter:
             if product is None:       # (L, n) state: K1d called directly
                 assert it.id not in children
@@ -299,11 +310,11 @@ def test_kernel_spans_on_the_card(tracer, cuda):
                 part = next(s for s in spans if s.parent == call.id)
                 assert children[call.id] == ["spmv"]
                 assert part.id not in children
-        # the solve, one more test than iterations, and each iteration
-        # with its product and the hybrid's part below it, or nothing
+        # the solve, one more test than iterations, and each body with
+        # its product and the hybrid's part below it, or nothing
         depth = 1 if product is None else 3
         assert sum(s.root == solve.id for s in spans) == (
-            1 + r.iterations * depth + r.iterations + 1)
+            1 + (r.iterations + discarded) * depth + r.iterations + 1)
     roots = [s for s in spans if s.parent is None]
     assert [s.name for s in roots][-2:] == ["spmv", "spmm"]
     assert children[roots[-2].id] == ["kernel.K2"]

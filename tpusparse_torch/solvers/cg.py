@@ -50,12 +50,27 @@ kernels K1d-K5d) keeps x, r, p, the dots, ``alpha``, ``beta`` and the
 history in float64 end to end.
 
 The loops are eager: every iteration runs the plan's kernel and BLAS-1
-on the device and makes one host sync, to read the convergence
-test. A solve is one ``cg.solve`` span of ``utils/trace.py``; each pass
-of its loop a ``cg.test`` span (the test and its sync), then, unless the
-test ends the loop, a ``cg.iteration`` span (the product and BLAS-1
-issued). The JAX package's plan baking and its XLA matvec swap are an
-XLA-TPU workaround and have no counterpart. CUDA graphs over blocks of
+on the device, and the host reads each convergence test. ``cg_solve``
+reads each test one iteration late. The recurrence needs no host value,
+so it issues iteration i + 1's body before it waits for iteration i's
+test, which reaches the host through a pinned slot while the device
+works on i + 1. When the test says stop, the solve returns iteration
+i's state and drops the body issued ahead, setting its history entry
+back to NaN: the answers are those of reading each test first, bit for
+bit, for one body more a solve. The initial residual's test is read
+before any body. ``_cg_multi_loop`` reads each test before the next
+body.
+
+A solve is one ``cg.solve`` span of ``utils/trace.py``; in it each body
+issued is a ``cg.iteration`` span (the product, BLAS-1 and, in
+``cg_solve``, its test queued) and each test read a ``cg.test`` span
+(the wait and the read). ``cg_solve`` counts ``cg.ahead``, a body issued
+before the test that admits it was read, and ``cg.discarded``, such a
+body dropped: a solve its test ends has iterations + 1 bodies and
+tests, ``cg.ahead`` = iterations and ``cg.discarded`` = 1.
+
+The JAX package's plan baking and its XLA matvec swap are an XLA-TPU
+workaround and have no counterpart. CUDA graphs over blocks of
 iterations are later work (ROADMAP A7b).
 """
 
@@ -127,7 +142,6 @@ def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
         mv = matvec if matvec is not None else (lambda v: spmv(A, v))
         x = torch.zeros_like(b) if x0 is None else x0
         r = b if x0 is None else b - mv(x)
-        p = r
         rs = dot_single(r, r)
         b_norm = torch.sqrt(dot_single(b, b))
         b_norm = torch.where(b_norm == 0, torch.ones_like(b_norm), b_norm)
@@ -135,12 +149,13 @@ def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
         zero = torch.zeros_like(rs)
         hist = torch.full((max_iters if record_history else 0,), float("nan"),
                           dtype=b.dtype, device=b.device)
-        i = 0
-        while i < max_iters:
-            with trace.span("cg.test"):
-                if not bool(torch.sqrt(rs) >= threshold):
-                    break
+        tests = _Tests(b.device)
+
+        def body(state, i):
+            """Issue iteration i on ``state`` = (x, r, p, r.r) and queue its
+            test; return the next state and the queued test."""
             with trace.span("cg.iteration"):
+                x, r, p, rs = state
                 Ap = mv(p)
                 pAp = dot_single(p, Ap)
                 alpha = torch.where(pAp == 0, zero, rs / pAp)
@@ -151,11 +166,66 @@ def cg_solve(A, b: torch.Tensor, max_iters: int = 10000,
                     hist[i] = torch.sqrt(rs_new) / b_norm
                 beta = torch.where(rs == 0, zero, rs_new / rs)
                 p = update_p_single(r, beta, p)
-                rs = rs_new
+                test = tests.queue(torch.sqrt(rs_new) >= threshold)
+            return (x, r, p, rs_new), test
+
+        state = (x, r, r, rs)                  # p = r
+        ahead = None          # (state after the body last issued, its test)
+        if max_iters > 0 and tests.read(
+                tests.queue(torch.sqrt(rs) >= threshold)):
+            ahead = body(state, 0)
+        i = 0
+        while ahead is not None:
+            state, test = ahead
             i += 1
+            if i == max_iters:
+                break
+            ahead = body(state, i)
+            trace.count("cg.ahead")
+            if not tests.read(test):
+                trace.count("cg.discarded")
+                if record_history:
+                    hist[i] = float("nan")
+                break
+        x, _, _, rs = state
         rel = torch.sqrt(rs) / b_norm
         return CgResult(x=x, iterations=i, converged=bool(rel < tolerance),
                         residual=float(rel), history=hist)
+
+
+class _Tests:
+    """Convergence tests that reach the host without a blocking copy. On
+    a CUDA device ``queue`` copies a test's flag into one of two pinned
+    host slots, in turn, and records an event behind it; ``read`` waits
+    for that event. Two, since a body queues its test before the last
+    body's is read. On the CPU the flag is on the host already."""
+
+    def __init__(self, device: torch.device):
+        self.stream = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            buf = torch.empty(2, dtype=torch.bool, pin_memory=True)
+            self.slots = (buf[0], buf[1])
+            self.events = (torch.cuda.Event(), torch.cuda.Event())
+            self.next = 0
+
+    def queue(self, flag: torch.Tensor):
+        """Start ``flag`` (a 0-d bool tensor) on its way to the host;
+        return what ``read`` takes."""
+        if self.stream is None:
+            return flag
+        k, self.next = self.next, 1 - self.next
+        self.slots[k].copy_(flag, non_blocking=True)
+        self.events[k].record(self.stream)
+        return k
+
+    def read(self, test) -> bool:
+        """Wait for a queued test and read it: one ``cg.test`` span."""
+        with trace.span("cg.test"):
+            if self.stream is None:
+                return bool(test)
+            self.events[test].synchronize()
+            return bool(self.slots[test])
 
 
 def cg_solve_multi(A, B: torch.Tensor, max_iters: int = 10000,
