@@ -194,11 +194,11 @@ def test_nested_products_are_children_of_the_call(tracer):
     roots = [s for s in spans if s.parent is None]
     assert [s.name for s in roots] == ["spmv", "spmm", "spmm"]
     # the hybrid's diagonal part, and for a 1-D X the 2-D call before
-    # it, each one level down; the plain versions on the CPU open no
-    # kernel.* span
+    # it, each one level down, and below a 2-D X's part the copy of X.T
+    # for K1; the plain versions on the CPU open no kernel.* span
     for root, chain in zip(roots, (["spmv", "spmv"],
                                    ["spmm", "spmm", "spmm"],
-                                   ["spmm", "spmm"])):
+                                   ["spmm", "spmm", "dia.layout"])):
         below, up = [], root.id
         while True:
             kids = [s for s in spans if s.parent == up]
@@ -211,6 +211,64 @@ def test_nested_products_are_children_of_the_call(tracer):
         assert all(s.root == root.id for s in spans
                    if s.start_ns >= root.start_ns
                    and s.end_ns <= root.end_ns)
+
+
+PLANS = {
+    # masked band (K1): X (n, L) goes to (L, n) for the kernel
+    "masked": (lambda: gen.make_laplacian_grid3d(5).to_csr(), "auto", True),
+    # value planes (K5): the same change of layout
+    "planes": (lambda: gen.make_variable_stencil(5).to_csr(), "auto", True),
+    # n-major band (K7) reads (n, L) blocks as they come
+    "nmajor": (lambda: gen.make_laplacian_grid3d(5).to_csr(), "nmajor",
+               False),
+}
+
+
+@pytest.mark.parametrize("form", sorted(PLANS))
+def test_spmm_counts_its_layout_change_at_the_dia_boundary(tracer, form):
+    matrix, strategy, copies = PLANS[form]
+    plan = plan_matrix(matrix(), strategy, dtype=np.float32, L=16,
+                       device="cpu")
+    n = plan.dia.num_rows
+    trace.take()
+    Y = spmm(plan, _b(n, 16).float())
+    spans, counters = trace.take()
+    assert Y.shape == (n, 16)
+    root = next(s for s in spans if s.parent is None)
+    assert [s.name for s in spans if s.parent is None] == ["spmm"]
+    layout = [s for s in spans if s.name == "dia.layout"]
+    assert [s.root for s in layout] == ([root.id] if copies else [])
+    assert counters == {"spmm.layout_bytes": {
+        root.id: 2 * n * 16 * 4 if copies else 0}}
+
+
+def test_products_that_change_no_layout_count_zero_or_nothing(tracer):
+    masked = plan_matrix(gen.make_laplacian_grid3d(5).to_csr(),
+                         dtype=np.float32, device="cpu")
+    merge = plan_matrix(gen.make_rmat(8).to_csr(), dtype=np.float32,
+                        device="cpu")
+    assert plan_kind(merge) == "merge"
+    XT = _b(3, 125).float()               # an (L, n) block ...
+    trace.take()
+    spmv(masked, _b(125).float())
+    spmm(masked, _b(125).float())         # 1-D X: X.T is contiguous
+    spmm(masked, XT.T)                    # ... seen as (n, L): no copy
+    spmm(merge, _b(merge.num_cols, 4).float())
+    spans, counters = trace.take()
+    roots = [s.id for s in spans if s.parent is None]
+    assert len(roots) == 4
+    assert not [s for s in spans if s.name == "dia.layout"]
+    assert counters == {"spmm.layout_bytes": {roots[1]: 0, roots[2]: 0}}
+
+
+def test_blocked_cg_on_a_dia_plan_changes_no_layout(tracer):
+    plan = plan_matrix(gen.make_laplacian_grid3d(5).to_csr(),
+                       dtype=np.float32, device="cpu")
+    res = cg_solve_multi(plan, _b(125, 4).float(), 100, 1e-4)
+    spans, counters = trace.take()
+    assert bool(res.converged.all()) and res.iterations > 0
+    assert not [s for s in spans if s.name == "dia.layout"]
+    assert "spmm.layout_bytes" not in counters
 
 
 def test_solution_bitwise_equal_with_the_tracer_on_and_off():

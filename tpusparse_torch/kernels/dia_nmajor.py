@@ -43,6 +43,7 @@ from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.dia_stream import (
     DiaStreamDevice,
     _maskable,
+    kernel_layout,
     to_device_dia_stream,
 )
 
@@ -224,7 +225,7 @@ def nmajor_matmat(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
 def spmm_dia_nmajor(D: DiaNMajorDevice, X, alpha=1.0, beta=0.0, Y=None):
     """Y = alpha * A @ X + beta * Y for X (num_cols, L <= D.L), cast to
     float32."""
-    Y_new = nmajor_matmat(D, X.to(torch.float32).contiguous())
+    Y_new = nmajor_matmat(D, kernel_layout(X.to(torch.float32)))
     if beta == 0.0 or Y is None:
         return alpha * Y_new if alpha != 1.0 else Y_new
     return alpha * Y_new + beta * Y

@@ -367,11 +367,27 @@ def spmv_dia_stream(D: DiaStreamDevice, x, alpha=1.0, beta=0.0, y=None):
     return alpha * y_new + beta * y
 
 
+def kernel_layout(T: torch.Tensor) -> torch.Tensor:
+    """``T`` made contiguous, the layout a DIA kernel reads, at the
+    public ``spmm`` boundary. A copy opens a ``dia.layout`` span; the
+    ``spmm.layout_bytes`` counter gets the bytes it reads and writes,
+    or 0 where ``T`` is contiguous already (a 1-D X's X.T, or (n, L)
+    blocks for K7)."""
+    if T.is_contiguous():
+        trace.count("spmm.layout_bytes", 0)
+        return T
+    with trace.span("dia.layout"):
+        T = T.contiguous()
+    trace.count("spmm.layout_bytes", 2 * T.numel() * T.element_size())
+    return T
+
+
 def spmm_dia_stream(D: DiaStreamDevice, X, alpha=1.0, beta=0.0, Y=None):
     """Y = alpha * A @ X + beta * Y for X (num_cols, L): the transposed
-    product on X.T, transposed back (the (n, L) layout at the public
-    function, as in the JAX package)."""
-    Y_new = spmm_dia_stream_t(D, X.to(D.vals.dtype).T.contiguous()).T
+    product on X.T, handed back as a transposed view of its (L, n)
+    result (the (n, L) layout at the public function, as in the JAX
+    package)."""
+    Y_new = spmm_dia_stream_t(D, kernel_layout(X.to(D.vals.dtype).T)).T
     if beta == 0.0 or Y is None:
         return alpha * Y_new if alpha != 1.0 else Y_new
     return alpha * Y_new + beta * Y

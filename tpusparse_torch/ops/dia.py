@@ -18,6 +18,7 @@ import torch
 
 from tpusparse_torch.formats.dia import DiaDevice
 from tpusparse_torch.kernels.dia_stream import (
+    kernel_layout,
     planes_value_dtype,
     spmm_dia_planes_t,
 )
@@ -31,7 +32,7 @@ def spmm_dia_t(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
 
 def spmm_dia(D: DiaDevice, X, alpha=1.0, beta=0.0, Y=None):
     """Y = alpha * A @ X + beta * Y, X of shape (num_cols, L)."""
-    Y_new = spmm_dia_t(D, X.T).T
+    Y_new = spmm_dia_t(D, kernel_layout(X.to(planes_value_dtype(D)).T)).T
     if beta == 0.0 or Y is None:
         return alpha * Y_new if alpha != 1.0 else Y_new
     return alpha * Y_new + beta * Y
