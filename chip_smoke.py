@@ -29,7 +29,7 @@ and exits non-zero on any failure:
     (K6, K3, K3d), and a preconditioner in the caller's order behind K6;
   * the n-major path: ``plan_matrix(csr, 'nmajor', L=16)`` -> ``spmm`` /
     ``cg_solve_multi`` / ``pcg_solve_multi`` on (n, L) blocks (K7), beside
-    AUTO (K1 behind transposes);
+    AUTO (``spmm`` on K7 over the same band, the solvers on K1 in (L, n));
   * the BSR path: ``plan_matrix(csr, 'bsr')`` -> ``spmv`` / ``spmm`` (K8,
     and K8d in float64).
 
@@ -169,7 +169,7 @@ Phases, each printed on its own lines:
       the matrix as given also runs in the caller's order, behind K6 (the
       JAX package's call);
  [14] the n-major path at lap3d-160, L = 16: ``spmm`` on
-      ``strategy='nmajor'`` (K7) and on AUTO (K1 behind the transposes),
+      ``strategy='nmajor'`` (K7) and on AUTO (K7 on the AUTO band),
       checked against float64, each bitwise equal to its plain version
       and K7 to K1 on X.T, timed with K7 and K1 alone beside the
       plain versions, ``torch.sparse`` and the bound; K7 on lap3d-40 at
@@ -821,7 +821,7 @@ def slice_spmm(tag, csr, C, plans, seed):
             row_split_vs_plain(6, f"{tag} spmm {label}", P, csr, X, Y)
         if kernel == "K1":
             # the kernel alone on K1's (L, n) layout, and through spmm,
-            # which transposes X in and Y out
+            # which runs K7 on the row-major X over the same band
             XT = X.T.contiguous()
             t = time_pair(lambda: dia_stream.spmm_dia_stream_t(P.dia, XT),
                           lambda: dia_stream.spmm_dia_masked_plain(P.dia,
@@ -829,8 +829,8 @@ def slice_spmm(tag, csr, C, plans, seed):
             nbytes = dia_masked_bytes(C.num_rows, L_MULTI)
             call = (cuda_time_ms(lambda: spmm(P, X)),
                     graph_time_ms(lambda: spmm(P, X)))
-            print(f"[6] {tag} spmm {label} through spmm (with the "
-                  f"transposes): {call[0]:.4f} ms/call, device "
+            print(f"[6] {tag} spmm {label} through spmm (K7 on X as "
+                  f"it is): {call[0]:.4f} ms/call, device "
                   f"{call[1]:.4f} ms")
         else:
             _, _, plain = spmm_kernels()[kernel]
@@ -1838,7 +1838,7 @@ def k5_alone_times(phase, what, D, XT, fp64=False):
 def nmajor_phase(gen, lap160, reset_counts, read_counts):
     """[14] The n-major path at full width, lap3d-160 at L = 16:
     ``spmm`` on ``strategy='nmajor'`` (K7, (n, L) with no transposes)
-    and on AUTO (K1 behind the (n, L) <-> (L, n) transposes), each
+    and on AUTO (K7 on the AUTO plan's band, no second plan), each
     checked against float64, held bitwise against its plain version (and
     K7 against K1 on X.T), and timed, with K7 alone, beside the plain
     versions, ``torch.sparse`` and the bound; ``cg_solve_multi`` on both
@@ -1878,7 +1878,7 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
     XT = X.T.contiguous()
     Y64, bound, _ = row_bound(C, X)
     Ys = []
-    for label, P in (("nmajor (K7)", N), ("auto (K1, transposes)", A)):
+    for label, P in (("nmajor (K7)", N), ("auto (K7 on its band)", A)):
         Y = spmm(P, X)
         check(Y.shape == (n, L_MULTI) and torch.isfinite(Y).all()
               and ((Y.double() - Y64).abs() <= bound).all(),
@@ -1916,7 +1916,7 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
             "spmm on the n-major plan (K7)": time_pair(
                 lambda: spmm(N, X),
                 lambda: dia_nmajor.spmm_nmajor_plain(N.dia, X)),
-            "spmm on the AUTO plan (K1 behind the transposes)": time_pair(
+            "spmm on the AUTO plan (K7 on its band)": time_pair(
                 lambda: spmm(A, X),
                 lambda: dia_stream.spmm_dia_masked_plain(A.dia, XT).T),
             "K1 alone on (L, n)": time_pair(

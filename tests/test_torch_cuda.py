@@ -949,6 +949,24 @@ def test_k7_matches_plain_and_k1_bitwise(cuda, name, L):
         assert torch.equal(dia_nmajor.nmajor_matmat(D, Xs), Y1)
 
 
+@pytest.mark.parametrize("L", [2, 3, 16, 128])
+def test_spmm_on_a_masked_band_runs_k7_on_row_major_x(cuda, L):
+    """``spmm`` on AUTO's masked band with a row-major float32 X launches
+    K7 once and K1 not at all, and equals K1 on X.T bit for bit."""
+    from tpusparse_torch.kernels import dia_nmajor
+
+    A = plan_matrix(NMAJOR_CASES["lap3d-16"](), "auto", device=cuda,
+                    dtype=np.float32)
+    assert plan_kind(A) == "dia"
+    X = _x(None, 80 + L, cuda, (A.dia.num_cols, L))
+    k7, k1 = dia_nmajor.LAUNCHES, dia_stream.LAUNCHES
+    Y = spmm(A, X)
+    assert dia_nmajor.LAUNCHES == k7 + 1 and dia_stream.LAUNCHES == k1
+    assert Y.shape == X.shape and Y.is_contiguous()
+    YT = dia_stream.spmm_dia_stream_t(A.dia, X.T.contiguous())
+    assert torch.equal(Y, YT.T)
+
+
 def test_k7_refuses_wrong_operands(cuda):
     from tpusparse_torch.kernels import dia_nmajor
 

@@ -3,9 +3,10 @@
 
 The benchmark's generator gives the port's ``make_laplacian_grid3d``
 CSR and JAX's ``make_grid3d(self_loop=True)`` pattern; its stencil
-reference is what ``spmm`` on the AUTO plan (the masked band, K1's
-plain version on the CPU) computes on row-major (n, L) blocks, within
-K1's bound: with u = 2^-24,
+reference is what ``spmm`` on the AUTO plan (the masked band: K1's
+plain version on the CPU at L = 1, K7's, which gives K1's bits, on a
+row-major block) computes on (n, L) blocks, within K1's bound: with
+u = 2^-24,
 
     |Y - Y_ref|_il <= 2 K u (|A| |X|)_il,  K = 7 diagonals.
 """

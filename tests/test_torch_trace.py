@@ -214,9 +214,10 @@ def test_nested_products_are_children_of_the_call(tracer):
 
 
 PLANS = {
-    # masked band (K1): X (n, L) goes to (L, n) for the kernel
-    "masked": (lambda: gen.make_laplacian_grid3d(5).to_csr(), "auto", True),
-    # value planes (K5): the same change of layout
+    # masked band: a float32 X (n, 16) takes K7 on the band as it is
+    # (counted by spmm.nmajor), with no copy
+    "masked": (lambda: gen.make_laplacian_grid3d(5).to_csr(), "auto", False),
+    # value planes (K5): X (n, L) goes to (L, n) for the kernel
     "planes": (lambda: gen.make_variable_stencil(5).to_csr(), "auto", True),
     # n-major band (K7) reads (n, L) blocks as they come
     "nmajor": (lambda: gen.make_laplacian_grid3d(5).to_csr(), "nmajor",
@@ -238,8 +239,9 @@ def test_spmm_counts_its_layout_change_at_the_dia_boundary(tracer, form):
     assert [s.name for s in spans if s.parent is None] == ["spmm"]
     layout = [s for s in spans if s.name == "dia.layout"]
     assert [s.root for s in layout] == ([root.id] if copies else [])
+    routed = {"spmm.nmajor": {root.id: 1}} if form == "masked" else {}
     assert counters == {"spmm.layout_bytes": {
-        root.id: 2 * n * 16 * 4 if copies else 0}}
+        root.id: 2 * n * 16 * 4 if copies else 0}, **routed}
 
 
 def test_products_that_change_no_layout_count_zero_or_nothing(tracer):

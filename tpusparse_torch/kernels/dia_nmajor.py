@@ -4,7 +4,11 @@ Port of ``tpusparse/kernels/dia_nmajor.py``. A square
 constant-coefficient band of at most 32 diagonals (the masked operand of
 K1, ``dia_stream.DiaStreamDevice``) multiplies a block of right-hand
 sides kept in its natural row-major (n, L) layout: Y (n, L) = A X (n, L),
-with no transposes around the kernel.
+with no transposes around the kernel. Two routes reach it: the explicit
+n-major plan (``plan_matrix(..., 'nmajor', L=L)``, a ``DiaNMajorDevice``),
+and ``spmm`` on AUTO's masked band with a row-major float32 X of 2 to
+128 columns (``dia_stream.spmm_dia_stream``), which wraps the plan's
+band in a ``DiaNMajorDevice`` at each call and so makes no second plan.
 
 K7 (``csrc/dia_nmajor.cu``) replaces the Pallas kernel ``_spmm_nmajor``
 (body ``_nmajor_kernel``). It reads K1's per-row mask words and its K

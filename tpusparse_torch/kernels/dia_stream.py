@@ -371,8 +371,8 @@ def kernel_layout(T: torch.Tensor) -> torch.Tensor:
     """``T`` made contiguous, the layout a DIA kernel reads, at the
     public ``spmm`` boundary. A copy opens a ``dia.layout`` span; the
     ``spmm.layout_bytes`` counter gets the bytes it reads and writes,
-    or 0 where ``T`` is contiguous already (a 1-D X's X.T, or (n, L)
-    blocks for K7)."""
+    or 0 where ``T`` is contiguous already (a 1-D X's X.T, an (L, n)
+    block's transposed view, or a row-major (n, L) block for K7)."""
     if T.is_contiguous():
         trace.count("spmm.layout_bytes", 0)
         return T
@@ -383,11 +383,26 @@ def kernel_layout(T: torch.Tensor) -> torch.Tensor:
 
 
 def spmm_dia_stream(D: DiaStreamDevice, X, alpha=1.0, beta=0.0, Y=None):
-    """Y = alpha * A @ X + beta * Y for X (num_cols, L): the transposed
-    product on X.T, handed back as a transposed view of its (L, n)
-    result (the (n, L) layout at the public function, as in the JAX
-    package)."""
-    Y_new = spmm_dia_stream_t(D, kernel_layout(X.to(D.vals.dtype).T)).T
+    """Y = alpha * A @ X + beta * Y for X (num_cols, L), cast to the
+    operand's type. The kernel follows X's layout: a row-major float32
+    block of 2 to 128 columns runs K7 (``dia_nmajor``) on X as it is,
+    over this same band, and Y comes back row-major (counter
+    ``spmm.nmajor``); any other X runs K1 or K1d on X.T, which is
+    contiguous already for L = 1 or an (L, n) block's transposed view,
+    and Y comes back as a transposed view of the (L, n) result. K7
+    equals K1 on X.T bit for bit, so Y's values do not depend on the
+    route."""
+    from tpusparse_torch.kernels import dia_nmajor   # it imports this
+
+    X = X.to(D.vals.dtype)
+    L = X.shape[-1]
+    if (X.dtype == torch.float32 and X.dim() == 2 and X.is_contiguous()
+            and 2 <= L <= dia_nmajor.LANE_COUNTS[-1]):
+        trace.count("spmm.nmajor")
+        band = dia_nmajor.DiaNMajorDevice(D, dia_nmajor.padded_lane_count(L))
+        Y_new = dia_nmajor.nmajor_matmat(band, kernel_layout(X))
+    else:
+        Y_new = spmm_dia_stream_t(D, kernel_layout(X.T)).T
     if beta == 0.0 or Y is None:
         return alpha * Y_new if alpha != 1.0 else Y_new
     return alpha * Y_new + beta * Y

@@ -37,8 +37,11 @@ def spmv_hybrid(H: HybridPlan, x, alpha=1.0, beta=0.0, y=None):
 
 
 def spmm_hybrid(H: HybridPlan, X, alpha=1.0, beta=0.0, Y=None):
-    """The same split for X (num_cols, L); K1 and K5 run on X.T, so the
-    DIA part transposes at its boundary."""
+    """The same split for X (num_cols, L). The DIA part picks its kernel
+    from X's layout (``kernels.dia_stream.spmm_dia_stream``): a masked
+    band runs K7 on a row-major float32 X of 2 to 128 columns as it is,
+    and K1 or K1d on X.T otherwise; value planes run K5 or K5d on X.T.
+    X.T is copied only where it is not contiguous already."""
     from tpusparse_torch.ops.spmv import spmm
 
     Y_new = spmm(H.dia, X)

@@ -11,11 +11,12 @@ float64 twins of K1-K5):
   AUTO       — a matrix whose dense diagonals carry at least
                ``DIA_MIN_COVERAGE`` of the nonzeros peels them: a square
                constant-coefficient band of at most 32 diagonals goes to
-               the masked DIA kernel (K1, K1d), any other band
-               (rectangular, variable coefficients, up to 64 diagonals)
-               to the value-plane kernel (K5, K5d); a scattered remainder
-               goes to the merge plan. Everything else goes to the merge
-               plan.
+               the masked DIA kernel (K1, K1d; ``spmm`` of a row-major
+               float32 X of 2 to 128 columns runs K7 on the same band),
+               any other band (rectangular, variable coefficients, up to
+               64 diagonals) to the value-plane kernel (K5, K5d); a
+               scattered remainder goes to the merge plan. Everything
+               else goes to the merge plan.
   DIA        — the same peel without the coverage gate.
   MERGE      — the merge plan on the whole matrix: K2 (K2d) for SpMV, K3
                (K3d) for SpMM.
