@@ -1148,32 +1148,16 @@ def bandwidths(csr, A):
     return bandwidth(csr), bandwidth(csr, A.perm.cpu().numpy())
 
 
-def launch_counters():
-    """name -> (module, attribute) of every kernel's launch count."""
-    from tpusparse_torch.kernels import (
-        bsr,
-        csr_reference,
-        dia_nmajor,
-        dia_stream,
-        ell_spmm,
-        merge_spmv,
-        permute,
-        spmm_merge,
-    )
+# every kernel's label in the launch counts (kernels/_build.LAUNCHES)
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K1d", "K2d", "K3d", "K4d", "K5d",
+           "K6", "K7", "K8", "K8d", "KR", "KRd")
 
-    return {"K1": (dia_stream, "LAUNCHES"), "K2": (merge_spmv, "LAUNCHES"),
-            "K3": (spmm_merge, "LAUNCHES"), "K4": (ell_spmm, "LAUNCHES"),
-            "K5": (dia_stream, "PLANES_LAUNCHES"),
-            "K1d": (dia_stream, "LAUNCHES_F64"),
-            "K2d": (merge_spmv, "LAUNCHES_F64"),
-            "K3d": (spmm_merge, "LAUNCHES_F64"),
-            "K4d": (ell_spmm, "LAUNCHES_F64"),
-            "K5d": (dia_stream, "PLANES_LAUNCHES_F64"),
-            "K6": (permute, "LAUNCHES"),
-            "K7": (dia_nmajor, "LAUNCHES"),
-            "K8": (bsr, "LAUNCHES"), "K8d": (bsr, "LAUNCHES_F64"),
-            "KR": (csr_reference, "LAUNCHES"),
-            "KRd": (csr_reference, "LAUNCHES_F64")}
+
+def launch_counters():
+    """The launch count of every kernel, by label (``_build.LAUNCHES``)."""
+    from tpusparse_torch.kernels import _build
+
+    return _build.LAUNCHES
 
 
 @contextlib.contextmanager
@@ -1181,12 +1165,12 @@ def uncounted():
     """Launches made inside (a kernel held against its plain version, or
     timed alone) leave the main path's launch counts as they were."""
     counters = launch_counters()
-    saved = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+    saved = counters.copy()
     try:
         yield
     finally:
-        for k, (m, attr) in counters.items():
-            setattr(m, attr, saved[k])
+        counters.clear()
+        counters.update(saved)
 
 
 def merge_vs_plain(phase, tag, P, X):
@@ -1723,8 +1707,8 @@ def k7_vs_plain(name, csr, L, seed, phase=2):
     A = plan_matrix(csr, "nmajor", L=L, device="cuda", dtype=np.float32)
     check(plan_kind(A) == "dia_nmajor", f"{name}: an n-major plan")
     X = rand(seed, (csr.num_cols, L))
-    Y = dia_nmajor.nmajor_matmat(A.dia, X)
-    Yp = dia_nmajor.spmm_nmajor_plain(A.dia, X)
+    Y = dia_nmajor.nmajor_matmat(A.dia.band, X)
+    Yp = dia_nmajor.spmm_nmajor_plain(A.dia.band, X)
     Y1 = dia_stream.spmm_dia_stream_t(A.dia.band, X.T.contiguous()).T
     what = f"K7 {name} ({csr.num_rows} rows) L={L}"
     check(Y.shape == (csr.num_rows, L) and torch.isfinite(Y).all(),
@@ -1886,7 +1870,8 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
               "float64")
         Ys.append(Y)
     with uncounted():
-        check(torch.equal(Ys[0], dia_nmajor.spmm_nmajor_plain(N.dia, X)),
+        check(torch.equal(Ys[0],
+                          dia_nmajor.spmm_nmajor_plain(N.dia.band, X)),
               "lap3d-160 L=16 K7 (spmm on the n-major plan): bitwise equal "
               "to its plain version")
         check(torch.equal(Ys[1], dia_stream.spmm_dia_masked_plain(
@@ -1911,11 +1896,11 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
         lib_ms = cuda_time_ms(lambda: lib @ X)
         rows = {
             "K7 alone on (n, L)": time_pair(
-                lambda: dia_nmajor.nmajor_matmat(N.dia, X),
-                lambda: dia_nmajor.spmm_nmajor_plain(N.dia, X)),
+                lambda: dia_nmajor.nmajor_matmat(N.dia.band, X),
+                lambda: dia_nmajor.spmm_nmajor_plain(N.dia.band, X)),
             "spmm on the n-major plan (K7)": time_pair(
                 lambda: spmm(N, X),
-                lambda: dia_nmajor.spmm_nmajor_plain(N.dia, X)),
+                lambda: dia_nmajor.spmm_nmajor_plain(N.dia.band, X)),
             "spmm on the AUTO plan (K7 on its band)": time_pair(
                 lambda: spmm(A, X),
                 lambda: dia_stream.spmm_dia_masked_plain(A.dia, XT).T),
@@ -1955,8 +1940,8 @@ def nmajor_phase(gen, lap160, reset_counts, read_counts):
     B = rand(610, (lap128.num_rows, L_MULTI))
     BT = B.T.contiguous()
     with uncounted():
-        check(torch.equal(dia_nmajor.nmajor_matmat(N.dia, B),
-                          dia_nmajor.spmm_nmajor_plain(N.dia, B)),
+        check(torch.equal(dia_nmajor.nmajor_matmat(N.dia.band, B),
+                          dia_nmajor.spmm_nmajor_plain(N.dia.band, B)),
               "lap3d-128 L=16 K7 on B: bitwise equal to its plain version")
         for side, solver in (("lower", prec.fwd), ("upper", prec.bwd)):
             S = solver.strict
@@ -2213,12 +2198,11 @@ def main() -> int:
     counters = launch_counters()
 
     def reset_counts():
-        for m, attr in counters.values():
-            setattr(m, attr, 0)
+        counters.clear()
 
     def read_counts(what, must):
         torch.cuda.synchronize()
-        counts = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+        counts = {k: counters[k] for k in KERNELS}
         print(f"[5] {what} launches: {counts}", flush=True)
         check(all(counts[k] > 0 for k in must),
               f"{', '.join(must)} launched on the {what}")

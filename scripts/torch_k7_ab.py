@@ -168,13 +168,13 @@ def _k7_cells(z) -> dict:
         n = D.num_rows
         g = torch.Generator(device="cuda").manual_seed(70 + L)
         X = torch.randn((n, L), generator=g, device="cuda")
-        Y = dia_nmajor.nmajor_matmat(D, X)
+        Y = dia_nmajor.nmajor_matmat(D.band, X)
         res = {"bitwise_plain": bool(torch.equal(
-            Y, dia_nmajor.spmm_nmajor_plain(D, X))), "sha256": _digest(Y)}
+            Y, dia_nmajor.spmm_nmajor_plain(D.band, X))), "sha256": _digest(Y)}
         del Y
         torch.cuda.empty_cache()
         lib = _library_csr(D)
-        res["kernel"] = _times(lambda: dia_nmajor.nmajor_matmat(D, X))
+        res["kernel"] = _times(lambda: dia_nmajor.nmajor_matmat(D.band, X))
         res["torch.sparse"] = _times(lambda: lib @ X)
         res["bound_ms"], res["bound_by"] = bound_ms(
             spmv_flops(int(lib.values().numel()), L), dia_masked_bytes(n, L))
@@ -229,7 +229,7 @@ def _solve(z) -> dict:
     D = _band(z, "lap3d-160", 16, "cuda")
     g = torch.Generator(device="cuda").manual_seed(45)
     X_true = torch.randn((D.num_rows, 16), generator=g, device="cuda")
-    B = dia_nmajor.spmm_nmajor_plain(D, X_true)
+    B = dia_nmajor.spmm_nmajor_plain(D.band, X_true)
     W = HybridPlan(D, None, int(z["lap3d-160/nnz"]))
     out = []
     for _ in range(2):

@@ -65,11 +65,10 @@ def _cell(A, nnz, L, seed) -> dict:
 
     D = A.dia
     n = D.num_rows
-    N = dia_nmajor.DiaNMajorDevice(D, dia_nmajor.padded_lane_count(L))
     g = torch.Generator(device="cuda").manual_seed(seed)
     X = torch.randn((n, L), generator=g, device="cuda")
     XT = X.T.contiguous()
-    Y7 = dia_nmajor.nmajor_matmat(N, X)
+    Y7 = dia_nmajor.nmajor_matmat(D, X)
     Y1 = dia_stream.spmm_dia_stream_t(D, XT)
     Ys = spmm(A, X)
     res = {"bitwise_k7_k1": bool(torch.equal(Y7, Y1.T)),
@@ -79,7 +78,7 @@ def _cell(A, nnz, L, seed) -> dict:
     torch.cuda.empty_cache()
 
     def k7():
-        return dia_nmajor.nmajor_matmat(N, X)
+        return dia_nmajor.nmajor_matmat(D, X)
 
     def copy_k1():
         return dia_stream.spmm_dia_stream_t(D, X.T.contiguous())

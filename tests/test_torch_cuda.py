@@ -38,6 +38,7 @@ from tpusparse_torch.formats.dia import (
 from tpusparse_torch.io import generators as gen
 from tpusparse_torch.io.market import read_market
 from tpusparse_torch.kernels import (
+    _build,
     dia_stream,
     ell_spmm,
     merge_spmv,
@@ -81,9 +82,9 @@ def test_k1_matches_plain(cuda, L):
     csr = gen.make_laplacian_grid3d(16).to_csr()
     D = plan_matrix(csr, "auto", device=cuda, dtype=np.float32).dia
     XT = _x(None, L, cuda, (L, csr.num_cols))
-    before = dia_stream.LAUNCHES
+    before = _build.LAUNCHES["K1"]
     Y = dia_stream.spmm_dia_stream_t(D, XT)
-    assert dia_stream.LAUNCHES == before + 1
+    assert _build.LAUNCHES["K1"] == before + 1
     Yp = dia_stream.spmm_dia_masked_plain(D, XT)
     absD = dia_stream.from_mask_words(D.num_rows, D.num_cols, D.offsets,
                                       D.vals.abs().cpu().numpy(),
@@ -119,13 +120,13 @@ def test_k1_bitwise_on_edge_cases(cuda, name, dtype, L):
     spaced planes, offsets past n, K = 0, n below a row block and n = 0;
     also on an XT view whose storage starts one element past a 16-byte
     boundary."""
-    counter = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    counter = "K1d" if dtype == torch.float64 else "K1"
     for shift in (0, 1):
         D, XT, base = _k1_operands(name, dtype, L, cuda, shift)
-        before = getattr(dia_stream, counter)
+        before = _build.LAUNCHES[counter]
         Y = dia_stream.spmm_dia_stream_t(D, XT)
         torch.cuda.synchronize()
-        assert getattr(dia_stream, counter) == before + 1
+        assert _build.LAUNCHES[counter] == before + 1
         assert Y.dtype == dtype and Y.shape == (L, D.num_rows)
         assert torch.equal(Y, dia_stream.spmm_dia_masked_plain(D, XT))
         np.testing.assert_array_equal(
@@ -184,13 +185,13 @@ def test_k2_and_k2d_row_bounds_one_count_per_call(cuda, name, dtype):
     M = merge_spmv.to_device_merge(K2_CASES[name](), cuda, dtype)
     x = torch.from_numpy(np.random.default_rng(8).standard_normal(
         M.num_cols)).to(cuda, dtype)
-    attr = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    label = "K2d" if dtype == torch.float64 else "K2"
     runs = 1 if M.num_rows + M.nnz else 0
-    before = getattr(merge_spmv, attr)
+    before = _build.LAUNCHES[label]
     y1 = merge_spmv.merge_matvec(M, x)
-    assert getattr(merge_spmv, attr) == before + runs
+    assert _build.LAUNCHES[label] == before + runs
     y2 = merge_spmv.merge_matvec(M, x)
-    assert getattr(merge_spmv, attr) == before + 2 * runs
+    assert _build.LAUNCHES[label] == before + 2 * runs
     assert y1.dtype == dtype and y1.shape == (M.num_rows,)
     assert torch.equal(y1, y2)
     args = (M.num_rows, M.row_offsets, M.col_indices)
@@ -247,14 +248,14 @@ def test_k3_and_k3d_equal_their_emulation(cuda, name, L, dtype):
     rand_csr = CsrMatrix(csr.num_rows, csr.num_cols, csr.row_offsets,
                          csr.col_indices, rng.standard_normal(csr.nnz))
     X = rng.standard_normal((csr.num_cols, L)).astype(npdt)
-    attr = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
+    label = "K3d" if dtype == torch.float64 else "K3"
     runs = 1 if csr.num_rows + csr.nnz else 0
     for A, XA in ((rand_csr, X), integer_valued(csr, L, 3 + L)):
         M = merge_spmv.to_device_merge(A, cuda, dtype)
         Xd = torch.from_numpy(XA.astype(npdt)).to(cuda)
-        before = getattr(spmm_merge, attr)
+        before = _build.LAUNCHES[label]
         Y1 = spmm_merge.merge_matmat(M, Xd)
-        assert getattr(spmm_merge, attr) == before + runs
+        assert _build.LAUNCHES[label] == before + runs
         Y2 = spmm_merge.merge_matmat(M, Xd)
         assert Y1.dtype == dtype and Y1.shape == (csr.num_rows, L)
         assert torch.equal(Y1, Y2)
@@ -311,10 +312,10 @@ def test_cg_on_card_matches_cpu(cuda):
     b = _x(csr.num_rows, 1, "cpu")
     r_cpu = cg_solve(plan_matrix(csr, "auto", device="cpu",
                                  dtype=np.float32), b)
-    before = dia_stream.LAUNCHES
+    before = _build.LAUNCHES["K1"]
     r = cg_solve(plan_matrix(csr, "auto", device=cuda,
                              dtype=np.float32), b.to(cuda))
-    assert dia_stream.LAUNCHES > before
+    assert _build.LAUNCHES["K1"] > before
     assert r.converged and abs(r.iterations - r_cpu.iterations) <= 1
     assert torch.linalg.norm(r.x.cpu() - r_cpu.x) \
         <= 1e-4 * torch.linalg.norm(r_cpu.x)
@@ -329,9 +330,9 @@ def test_cg_lookahead_on_card_equals_the_eager_loop(cuda, tracer,
     its test ends launches K1d once more than it iterates."""
     plan = plan_matrix(_hpcg27(8), device=cuda)          # float64: K1d
     b = _x64(3, cuda, (512,))
-    before = dia_stream.LAUNCHES_F64
+    before = _build.LAUNCHES["K1d"]
     eager = eager_cg(plan, b, max_iters, 1e-10, record_history=True)
-    mid = dia_stream.LAUNCHES_F64
+    mid = _build.LAUNCHES["K1d"]
     trace.take()
     res = cg_solve(plan, b, max_iters, 1e-10, record_history=True)
     _, counters = trace.take()
@@ -341,7 +342,7 @@ def test_cg_lookahead_on_card_equals_the_eager_loop(cuda, tracer,
     assert sum(counters.get("cg.ahead", {}).values()) == ahead
     assert sum(counters.get("cg.discarded", {}).values()) == discarded
     assert mid - before == res.iterations > 0
-    assert dia_stream.LAUNCHES_F64 - mid == res.iterations + discarded
+    assert _build.LAUNCHES["K1d"] - mid == res.iterations + discarded
 
 def test_no_fallback_on_cuda_tensors(cuda):
     csr = gen.make_laplacian_grid2d(4).to_csr()
@@ -357,12 +358,12 @@ def test_no_fallback_on_cuda_tensors(cuda):
     assert y.is_cuda
 
 
-# (plan, kernel wrapper, plain version, kernel module) of K3 and K4
+# (plan, kernel wrapper, plain version) of K3 and K4
 SPMM_KERNELS = {
     "K3": (merge_spmv.to_device_merge, spmm_merge.merge_matmat,
-           spmm_merge.spmm_merge_plain, spmm_merge),
+           spmm_merge.spmm_merge_plain),
     "K4": (ell_spmm.to_device_row_split, ell_spmm.row_split_matmat,
-           ell_spmm.spmm_row_split_plain, ell_spmm),
+           ell_spmm.spmm_row_split_plain),
 }
 
 
@@ -370,13 +371,13 @@ SPMM_KERNELS = {
 @pytest.mark.parametrize("kernel", list(SPMM_KERNELS))
 @pytest.mark.parametrize("name", list(CASES))
 def test_spmm_kernels_match_plain_and_float64(cuda, name, kernel, L):
-    plan, matmat, plain, module = SPMM_KERNELS[kernel]
+    plan, matmat, plain = SPMM_KERNELS[kernel]
     A = plan(CASES[name](), cuda)
     X = _x(None, 7, cuda, (A.num_cols, L))
-    before = module.LAUNCHES
+    before = _build.LAUNCHES[kernel]
     Y1 = matmat(A, X)
     Y2 = matmat(A, X)
-    assert module.LAUNCHES == before + (2 if A.num_rows else 0)
+    assert _build.LAUNCHES[kernel] == before + (2 if A.num_rows else 0)
     assert Y1.shape == (A.num_rows, L) and torch.equal(Y1, Y2)
     args = (A.num_rows, A.row_offsets, A.col_indices)
     Y64 = csr_matmat(*args, A.values.double(), X.double())
@@ -411,16 +412,16 @@ def test_auto_spmm_on_card_matches_float64(cuda, name, make, kind):
 def test_cg_multi_on_card_matches_cpu(cuda):
     csr = gen.make_laplacian_grid3d(12).to_csr()
     B = _x(None, 2, "cpu", (csr.num_rows, 4))
-    for strategy, module in (("auto", dia_stream), ("merge", spmm_merge),
-                             ("row_split", ell_spmm)):
+    for strategy, label in (("auto", "K1"), ("merge", "K3"),
+                            ("row_split", "K4")):
         r_cpu = cg_solve_multi(plan_matrix(csr, strategy, L=4, device="cpu",
                                            dtype=np.float32),
                                B)
-        before = module.LAUNCHES
+        before = _build.LAUNCHES[label]
         r = cg_solve_multi(plan_matrix(csr, strategy, L=4, device=cuda,
                                        dtype=np.float32),
                            B.to(cuda))
-        assert module.LAUNCHES > before
+        assert _build.LAUNCHES[label] > before
         assert bool(r.converged.all()) and bool(r_cpu.converged.all())
         assert abs(r.iterations - r_cpu.iterations) <= 1
         assert torch.all(torch.linalg.norm(r.x.cpu() - r_cpu.x, dim=0)
@@ -454,12 +455,12 @@ def _k4_vs_cpu_plain(csr, dtype, L, dev):
     Ac = ell_spmm.to_device_row_split(csr, "cpu", dtype)
     X = torch.from_numpy(np.random.default_rng(L).standard_normal(
         (csr.num_cols, L))).to(dtype)
-    attr = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
-    before = getattr(ell_spmm, attr)
+    label = "K4d" if dtype == torch.float64 else "K4"
+    before = _build.LAUNCHES[label]
     Y1 = ell_spmm.row_split_matmat(A, X.to(dev))
-    assert getattr(ell_spmm, attr) == before + (1 if A.num_rows else 0)
+    assert _build.LAUNCHES[label] == before + (1 if A.num_rows else 0)
     Y2 = ell_spmm.row_split_matmat(A, X.to(dev))
-    assert getattr(ell_spmm, attr) == before + (2 if A.num_rows else 0)
+    assert _build.LAUNCHES[label] == before + (2 if A.num_rows else 0)
     assert Y1.dtype == dtype and Y1.shape == (csr.num_rows, L)
     assert torch.equal(Y1, Y2)
     assert torch.equal(Y1.cpu(), ell_spmm.row_split_matmat(Ac, X))
@@ -517,9 +518,9 @@ PLANE_CASES = {
 def test_k5_matches_plain_bitwise(cuda, name, plane_dtype, L):
     D = _planes(PLANE_CASES[name](), cuda, plane_dtype)
     XT = _x(None, L, cuda, (L, D.num_cols))
-    before = dia_stream.PLANES_LAUNCHES
+    before = _build.LAUNCHES["K5"]
     Y = dia_stream.spmm_dia_planes_t(D, XT)
-    assert dia_stream.PLANES_LAUNCHES == before + 1
+    assert _build.LAUNCHES["K5"] == before + 1
     assert Y.shape == (L, D.num_rows) and Y.device == XT.device
     assert torch.equal(Y, dia_stream.spmm_dia_planes_plain(D, XT))
     absD = dataclasses.replace(D, data=D.data.abs())
@@ -531,7 +532,7 @@ def test_k5_matches_plain_bitwise(cuda, name, plane_dtype, L):
 
 def test_k5_empty_operands_launch_nothing(cuda):
     D = _planes(PLANE_CASES["var-7-12"](), cuda)
-    before = dia_stream.PLANES_LAUNCHES
+    before = _build.LAUNCHES["K5"]
     Y = dia_stream.spmm_dia_planes_t(
         D, torch.zeros(0, D.num_cols, device=cuda))
     assert Y.shape == (0, D.num_rows)
@@ -541,7 +542,7 @@ def test_k5_empty_operands_launch_nothing(cuda):
     Z = DiaDevice(4, 4, (), torch.zeros(0, 4, device=cuda))
     assert torch.equal(dia_stream.spmm_dia_planes_t(
         Z, torch.ones(2, 4, device=cuda)), torch.zeros(2, 4, device=cuda))
-    assert dia_stream.PLANES_LAUNCHES == before
+    assert _build.LAUNCHES["K5"] == before
 
 
 def test_k5_no_fallback_on_cuda_tensors(cuda):
@@ -553,11 +554,11 @@ def test_k5_no_fallback_on_cuda_tensors(cuda):
             D, torch.zeros(1, n, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="same device"):
         dia_stream.spmm_dia_planes_t(D, torch.zeros(1, n))
-    before = dia_stream.PLANES_LAUNCHES
+    before = _build.LAUNCHES["K5"]
     y = spmv(plan_matrix(gen.make_variable_stencil(12).to_csr(), "auto",
                          device=cuda,
                          dtype=np.float32), torch.ones(n, device=cuda))
-    assert y.is_cuda and dia_stream.PLANES_LAUNCHES == before + 1
+    assert y.is_cuda and _build.LAUNCHES["K5"] == before + 1
 
 
 def test_k5_equals_k1_on_constant_band(cuda):
@@ -576,12 +577,12 @@ def test_variable_band_solvers_on_card_match_cpu(cuda):
     B = _x(None, 5, "cpu", (csr.num_rows, 4))
     plans = {dev: (plan_matrix(csr, "auto", device=dev, dtype=np.float32),
                    plan_dia_bf16(csr, device=dev)) for dev in ("cpu", cuda)}
-    before = dia_stream.PLANES_LAUNCHES
+    before = _build.LAUNCHES["K5"]
     runs = {dev: (cg_solve(A32, b.to(dev)), cg_solve_multi(A32, B.to(dev)),
                   cg_solve_bf16(A16, A32, b.to(dev)),
                   cg_solve_multi_refined_f32(A16, A32, B.to(dev)))
             for dev, (A32, A16) in plans.items()}
-    assert dia_stream.PLANES_LAUNCHES > before
+    assert _build.LAUNCHES["K5"] > before
     (c1, cm, c16, cr), (g1, gm, g16, gr) = runs["cpu"], runs[cuda]
     assert plan_kind(plans[cuda][0]) == "dia"
     assert plan_kind(plans[cuda][1]) == "dia_bf16"
@@ -596,7 +597,7 @@ def test_variable_band_solvers_on_card_match_cpu(cuda):
 
 @pytest.mark.parametrize("kernel", list(SPMM_KERNELS))
 def test_spmm_kernels_refuse_wrong_operands(cuda, kernel):
-    plan, matmat, _, _ = SPMM_KERNELS[kernel]
+    plan, matmat, _ = SPMM_KERNELS[kernel]
     A = plan(gen.make_laplacian_grid2d(4).to_csr(), cuda)
     # mixed types: float64 X on a float32 operand
     with pytest.raises(TypeError):
@@ -622,10 +623,10 @@ def test_k1d_matches_plain_bitwise(cuda, L):
     D = plan_matrix(csr, "auto", dtype=np.float64, device=cuda).dia
     assert isinstance(D, dia_stream.DiaStreamDevice)
     XT = _x64(L, cuda, (L, csr.num_cols))
-    before, before32 = dia_stream.LAUNCHES_F64, dia_stream.LAUNCHES
+    before, before32 = _build.LAUNCHES["K1d"], _build.LAUNCHES["K1"]
     Y = dia_stream.spmm_dia_stream_t(D, XT)
-    assert dia_stream.LAUNCHES_F64 == before + 1
-    assert dia_stream.LAUNCHES == before32
+    assert _build.LAUNCHES["K1d"] == before + 1
+    assert _build.LAUNCHES["K1"] == before32
     assert Y.dtype == torch.float64 and Y.shape == (L, csr.num_cols)
     assert torch.equal(Y, dia_stream.spmm_dia_masked_plain(D, XT))
     assert torch.equal(Y, dia_stream.spmm_dia_stream_t(D, XT))
@@ -636,9 +637,9 @@ def test_k1d_matches_plain_bitwise(cuda, L):
 def test_k5d_matches_plain_bitwise(cuda, name, L):
     D = _planes(PLANE_CASES[name](), cuda, torch.float64)
     XT = _x64(L, cuda, (L, D.num_cols))
-    before = dia_stream.PLANES_LAUNCHES_F64
+    before = _build.LAUNCHES["K5d"]
     Y = dia_stream.spmm_dia_planes_t(D, XT)
-    assert dia_stream.PLANES_LAUNCHES_F64 == before + 1
+    assert _build.LAUNCHES["K5d"] == before + 1
     assert Y.dtype == torch.float64 and Y.shape == (L, D.num_rows)
     assert torch.equal(Y, dia_stream.spmm_dia_planes_plain(D, XT))
     assert torch.equal(Y, dia_stream.spmm_dia_planes_t(D, XT))
@@ -665,13 +666,13 @@ def test_k5d_at_64_planes(cuda, L):
 def test_fp64_csr_kernels_match_plain(cuda, name, kernel, L):
     """K3d and K4d (and K2d at L = 1) against their plain versions:
     within 2 (nnz_i + 2) u (|A||X|), and two runs bitwise equal."""
-    plan, matmat, plain, module = SPMM_KERNELS[kernel]
+    plan, matmat, plain = SPMM_KERNELS[kernel]
     csr = CASES[name]()
     A = plan(csr, cuda, torch.float64)
     X = _x64(11, cuda, (A.num_cols, L))
-    before = module.LAUNCHES_F64
+    before = _build.LAUNCHES[kernel + "d"]
     Y1, Y2 = matmat(A, X), matmat(A, X)
-    assert module.LAUNCHES_F64 == before + (2 if A.num_rows else 0)
+    assert _build.LAUNCHES[kernel + "d"] == before + (2 if A.num_rows else 0)
     assert Y1.dtype == torch.float64 and torch.equal(Y1, Y2)
     args = (A.num_rows, A.row_offsets, A.col_indices)
     AX = csr_matmat(*args, A.values.abs(), X.abs())
@@ -680,10 +681,10 @@ def test_fp64_csr_kernels_match_plain(cuda, name, kernel, L):
                      <= 2 * (nnz_i + 2) * U64 * AX)
     if kernel == "K3" and L == 1:
         M = merge_spmv.to_device_merge(csr, cuda, torch.float64)
-        before = merge_spmv.LAUNCHES_F64
+        before = _build.LAUNCHES["K2d"]
         y1, y2 = merge_spmv.merge_matvec(M, X[:, 0]), \
             merge_spmv.merge_matvec(M, X[:, 0])
-        assert merge_spmv.LAUNCHES_F64 == before + (2 if M.num_rows else 0)
+        assert _build.LAUNCHES["K2d"] == before + (2 if M.num_rows else 0)
         assert torch.equal(y1, y2)
         assert torch.all((y1 - merge_spmv.spmv_merge_plain(M, X[:, 0])).abs()
                          <= 2 * (nnz_i[:, 0] + 2) * U64 * AX[:, 0])
@@ -707,7 +708,7 @@ def test_fp64_kernels_refuse_mixed_types(cuda):
         with pytest.raises(TypeError):
             merge_spmv.merge_matvec(M, torch.zeros(n, device=cuda,
                                                    dtype=other))
-        for kernel, (plan, matmat, _, _) in SPMM_KERNELS.items():
+        for kernel, (plan, matmat, _) in SPMM_KERNELS.items():
             with pytest.raises(TypeError):
                 matmat(plan(csr, cuda, dtype),
                        torch.zeros(n, 2, device=cuda, dtype=other))
@@ -764,10 +765,10 @@ def test_k6_matches_index_select_bitwise(cuda, dtype, L, n):
     for perm in (np.random.default_rng(n).permutation(n),
                  np.arange(n)[::-1].copy(), np.arange(n)):
         p = permute.build_permute_plan(perm, cuda)
-        before = permute.LAUNCHES
+        before = _build.LAUNCHES["K6"]
         y = permute.permute_apply(p, x)
         torch.cuda.synchronize()
-        assert permute.LAUNCHES == before + (1 if x.numel() else 0)
+        assert _build.LAUNCHES["K6"] == before + (1 if x.numel() else 0)
         assert y.dtype == x.dtype and y.shape == x.shape
         assert torch.equal(y, x.index_select(0, p))
         if n:
@@ -876,7 +877,7 @@ def test_preconditioned_solvers_on_card_match_cpu(cuda):
         A = plan_matrix(csr, "auto", reorder="rcm", L=4, device=dev,
                         dtype=np.float32)
         A0 = plan_matrix(csr, "auto", L=4, device=dev, dtype=np.float32)
-        before = permute.LAUNCHES
+        before = _build.LAUNCHES["K6"]
         out[dev] = (
             pcg_solve_multi(A0, B.to(dev), make_ic0_preconditioner(
                 Lf, num_rhs=4, dtype=np.float32, device=dev)),
@@ -892,12 +893,13 @@ def test_preconditioned_solvers_on_card_match_cpu(cuda):
                 ic0_factorize(A.permuted(csr)), num_rhs=4, dtype=np.float32,
                 device=dev, perm=A.perm)))
         if dev == cuda:
-            assert permute.LAUNCHES == before + 4
+            assert _build.LAUNCHES["K6"] == before + 4
             # the caller's order, behind K6: two more launches an iteration
-            before = permute.LAUNCHES
+            before = _build.LAUNCHES["K6"]
             res = pcg_solve_multi(A, B.to(dev), make_ic0_preconditioner(
                 Lf, num_rhs=4, dtype=np.float32, device=dev))
-            assert permute.LAUNCHES == before + 2 + 2 * (res.iterations + 1)
+            assert _build.LAUNCHES["K6"] == \
+                before + 2 + 2 * (res.iterations + 1)
             assert abs(res.iterations - out[dev][0].iterations) <= 1
     for g, c in zip(out[cuda], out["cpu"]):
         assert bool(g.converged.all()) and g.x.is_cuda
@@ -928,12 +930,12 @@ def test_k7_matches_plain_and_k1_bitwise(cuda, name, L):
                     dtype=np.float32)
     D = A.dia
     X = _x(None, L, cuda, (D.num_cols, L))
-    before = dia_nmajor.LAUNCHES
-    Y1 = dia_nmajor.nmajor_matmat(D, X)
-    Y2 = dia_nmajor.nmajor_matmat(D, X)
-    assert dia_nmajor.LAUNCHES == before + 2
+    before = _build.LAUNCHES["K7"]
+    Y1 = dia_nmajor.nmajor_matmat(D.band, X)
+    Y2 = dia_nmajor.nmajor_matmat(D.band, X)
+    assert _build.LAUNCHES["K7"] == before + 2
     assert Y1.shape == (D.num_rows, L) and torch.equal(Y1, Y2)
-    assert torch.equal(Y1, dia_nmajor.spmm_nmajor_plain(D, X))
+    assert torch.equal(Y1, dia_nmajor.spmm_nmajor_plain(D.band, X))
     V = dia_nmajor.k7_lane_group(L, X, Y1)
     np.testing.assert_array_equal(Y1.cpu().numpy(),
                                   emulate_k7(D, X.cpu().numpy(), V))
@@ -946,7 +948,7 @@ def test_k7_matches_plain_and_k1_bitwise(cuda, name, L):
         flat = torch.empty(X.numel() + shift, device=cuda)
         Xs = flat[shift:].view(X.shape)
         Xs.copy_(X)
-        assert torch.equal(dia_nmajor.nmajor_matmat(D, Xs), Y1)
+        assert torch.equal(dia_nmajor.nmajor_matmat(D.band, Xs), Y1)
 
 
 @pytest.mark.parametrize("L", [2, 3, 16, 128])
@@ -959,9 +961,9 @@ def test_spmm_on_a_masked_band_runs_k7_on_row_major_x(cuda, L):
                     dtype=np.float32)
     assert plan_kind(A) == "dia"
     X = _x(None, 80 + L, cuda, (A.dia.num_cols, L))
-    k7, k1 = dia_nmajor.LAUNCHES, dia_stream.LAUNCHES
+    k7, k1 = _build.LAUNCHES["K7"], _build.LAUNCHES["K1"]
     Y = spmm(A, X)
-    assert dia_nmajor.LAUNCHES == k7 + 1 and dia_stream.LAUNCHES == k1
+    assert _build.LAUNCHES["K7"] == k7 + 1 and _build.LAUNCHES["K1"] == k1
     assert Y.shape == X.shape and Y.is_contiguous()
     YT = dia_stream.spmm_dia_stream_t(A.dia, X.T.contiguous())
     assert torch.equal(Y, YT.T)
@@ -974,14 +976,15 @@ def test_k7_refuses_wrong_operands(cuda):
                     dtype=np.float32)
     n = A.dia.num_rows
     with pytest.raises(ValueError, match="L <= 4"):
-        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(n, 5, device=cuda))
+        spmm(A, torch.zeros(n, 5, device=cuda))
     with pytest.raises(TypeError, match="float32"):
-        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(
+        dia_nmajor.nmajor_matmat(A.dia.band, torch.zeros(
             n, 2, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="same device"):
-        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(n, 2))
+        dia_nmajor.nmajor_matmat(A.dia.band, torch.zeros(n, 2))
     with pytest.raises(ValueError, match="contiguous"):
-        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(2, n, device=cuda).T)
+        dia_nmajor.nmajor_matmat(A.dia.band,
+                                 torch.zeros(2, n, device=cuda).T)
     with pytest.raises(ValueError):
         plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=1, device=cuda,
                     dtype=np.float32)
@@ -992,7 +995,7 @@ def test_new_kernels_do_not_fall_back_without_the_library(cuda,
     """A CUDA tensor launches the kernel or raises: with no library to
     load, K7, K8, K8d and K6 (alone and through a ReorderedPlan) raise
     instead of running their plain versions."""
-    from tpusparse_torch.kernels import _build, bsr, dia_nmajor, permute
+    from tpusparse_torch.kernels import bsr, dia_nmajor, permute
 
     A = plan_matrix(NMAJOR_CASES["lap2d-33"](), "nmajor", L=4, device=cuda,
                     dtype=np.float32)
@@ -1006,8 +1009,8 @@ def test_new_kernels_do_not_fall_back_without_the_library(cuda,
 
     monkeypatch.setattr(_build, "library", missing)
     with pytest.raises(RuntimeError, match="nvcc"):
-        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(A.dia.num_rows, 2,
-                                                    device=cuda))
+        dia_nmajor.nmajor_matmat(A.dia.band, torch.zeros(A.dia.num_rows, 2,
+                                                         device=cuda))
     for P, dt in ((Bf, torch.float32), (Bd, torch.float64)):
         with pytest.raises(RuntimeError, match="nvcc"):
             bsr.bsr_matmat(P, torch.zeros(P.num_cols, 3, device=cuda,
@@ -1052,11 +1055,11 @@ def _check_k8(A, X):
 
     tdt, L = X.dtype, X.shape[1]
     dtype = np.float32 if tdt == torch.float32 else np.float64
-    module_count = "LAUNCHES" if dtype == np.float32 else "LAUNCHES_F64"
-    before = getattr(bsr, module_count)
+    label = "K8" if dtype == np.float32 else "K8d"
+    before = _build.LAUNCHES[label]
     Y1 = bsr.bsr_matmat(A, X)
     Y2 = bsr.bsr_matmat(A, X)
-    assert getattr(bsr, module_count) == before + 2
+    assert _build.LAUNCHES[label] == before + 2
     assert Y1.shape == (A.num_rows, L) and Y1.dtype == tdt
     assert torch.equal(Y1, Y2)
     Yp = bsr.bsr_spmm_plain(A, X)
@@ -1124,13 +1127,13 @@ def test_k5_and_k5d_equal_their_emulation(cuda, name, plane_dtype, L):
     below a row block, on XT aligned to 16 bytes and one element off;
     one launch a call (none at K = 0)."""
     f64 = plane_dtype == torch.float64
-    counter = "PLANES_LAUNCHES_F64" if f64 else "PLANES_LAUNCHES"
+    counter = "K5d" if f64 else "K5"
     for shift in (0, 1):
         D, XT = _k5_operands(name, plane_dtype, L, cuda, shift)
-        before = getattr(dia_stream, counter)
+        before = _build.LAUNCHES[counter]
         Y = dia_stream.spmm_dia_planes_t(D, XT)
         torch.cuda.synchronize()
-        assert getattr(dia_stream, counter) == before + (
+        assert _build.LAUNCHES[counter] == before + (
             len(D.offsets) > 0)
         assert Y.dtype == XT.dtype and Y.shape == (L, D.num_rows)
         assert torch.equal(Y, dia_stream.spmm_dia_planes_plain(D, XT))
@@ -1154,8 +1157,6 @@ def test_reference_product_repeats_the_cpu_bits(cuda, name, dtype, L):
     """The reference product (KR, KRd in float64) adds each row in CSR
     order: two calls on the card give equal bits, and they are the CPU
     plain version's; through ``strategy='reference'`` too."""
-    from tpusparse_torch.kernels import csr_reference
-
     csr = REFERENCE_CASES[name]()
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     C = plan_matrix(csr, "reference", dtype=np_dtype, device=cuda)
@@ -1164,14 +1165,14 @@ def test_reference_product_repeats_the_cpu_bits(cuda, name, dtype, L):
         (csr.num_cols, L))).to(dtype)
     args = (C.num_rows, C.row_offsets, C.col_indices, C.values)
     hargs = (Ch.num_rows, Ch.row_offsets, Ch.col_indices, Ch.values)
-    counter = "LAUNCHES_F64" if dtype == torch.float64 else "LAUNCHES"
-    before = getattr(csr_reference, counter)
+    counter = "KRd" if dtype == torch.float64 else "KR"
+    before = _build.LAUNCHES[counter]
     Y1 = csr_matmat(*args, X.to(cuda))
     Y2 = spmm(C, X.to(cuda))
     y1 = csr_matvec(*args, X[:, 0].to(cuda))
     y2 = spmv(C, X[:, 0].to(cuda))
     torch.cuda.synchronize()
-    assert getattr(csr_reference, counter) == before + 4 * (
+    assert _build.LAUNCHES[counter] == before + 4 * (
         csr.num_rows > 0)
     want = csr_matmat(*hargs, X)
     assert torch.equal(Y1.cpu(), want) and torch.equal(Y2.cpu(), want)
@@ -1183,8 +1184,6 @@ def test_reference_product_does_not_fall_back(cuda, monkeypatch):
     """A CUDA tensor launches KR or raises: with no library to load the
     reference product raises, and a value type KR does not take raises
     TypeError."""
-    from tpusparse_torch.kernels import _build
-
     C = plan_matrix(CASES["wheel-5000"](), "reference", dtype=np.float32,
                     device=cuda)
     args = (C.num_rows, C.row_offsets, C.col_indices)

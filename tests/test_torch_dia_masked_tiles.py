@@ -14,11 +14,10 @@ past n, K = 0 and n smaller than a row block, at every misalignment of
 XT's lanes. The emulation imports no JAX: the card tests
 (``test_torch_cuda.py``) hold K1's and K1d's Y to it.
 
-The wrapper refuses a library whose geometry differs from the Python
-mirror before anything is launched.
+A launch checks that geometry against the library's through
+``_build.geometry`` (``test_torch_layers.py``).
 """
 
-import ctypes
 import re
 from pathlib import Path
 
@@ -28,7 +27,7 @@ import torch
 
 from tpusparse_torch import plan_matrix
 from tpusparse_torch.io import generators as gen
-from tpusparse_torch.kernels import _build, dia_stream
+from tpusparse_torch.kernels import dia_stream
 
 ROOT = Path(__file__).resolve().parent.parent
 LS = (1, 3, 16, 33)
@@ -202,49 +201,3 @@ def test_geometry_mirrors_the_source():
         assert dia_stream.k1_geometry(itemsize) == (
             c["kThreads"], c["kRowBytes"] // itemsize,
             c["kVectorBytes"] // itemsize)
-
-
-class _Library:
-    """Stand-in for the CUDA library: K1's geometry with ``rows_skew``
-    more rows a thread, or none (``known=False``); any kernel entry
-    fails the test."""
-
-    def __init__(self, rows_skew=0, known=True):
-        self.rows_skew, self.known = rows_skew, known
-
-    def tps_dia_masked_geometry(self, value_bytes, out):
-        if not self.known:
-            return 1
-        threads, rows, vector = dia_stream.k1_geometry(value_bytes)
-        (ctypes.c_int * 3).from_address(out)[:] = [
-            threads, rows + self.rows_skew, vector]
-        return 0
-
-    def __getattr__(self, name):
-        raise AssertionError(f"{name} launched")
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """Install a stand-in library (fresh geometry cache)."""
-    def install(**kw):
-        lib = _Library(**kw)
-        monkeypatch.setattr(_build, "library", lambda: lib)
-        monkeypatch.setattr(dia_stream, "_lib_geometry", {})
-        return lib
-    return install
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_k1_launch_refuses_a_library_of_another_geometry(stand_in, dtype):
-    """K1's launch (the CUDA path of ``spmm_dia_stream_t``) checks the
-    library's geometry against the mirror the emulation uses: another
-    run of rows a thread, or no geometry for the value size, raises
-    before anything is launched; the mirror's own passes."""
-    D = K1_CASES["lap3d-40"](dtype)
-    XT = torch.zeros((2, D.num_cols), dtype=dtype)
-    for kw in ({"rows_skew": 4}, {"known": False}):
-        stand_in(**kw)
-        with pytest.raises(RuntimeError, match="geometry"):
-            dia_stream._launch(D, XT)
-    dia_stream._check_geometry(stand_in(), XT.element_size())

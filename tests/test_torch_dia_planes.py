@@ -52,7 +52,6 @@ from tpusparse_torch.formats import dia
 from tpusparse_torch.io import generators as gen
 from tpusparse_torch.io.market import read_market
 from tpusparse_torch.kernels import dia_stream
-from tpusparse_torch.ops.dia import spmm_dia, spmm_dia_t, spmv_dia
 from tpusparse_torch.utils.carry import plan_from_arrays
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -186,14 +185,14 @@ def test_k5_plain_matches_xla_dia_op(name, L):
     Dj = jdia.to_device_dia(jhost, dtype=np.float32)
     D = dia.to_device_dia(host, "cpu")
     bound = _bound(XT, host)
-    Yt = spmm_dia_t(D, torch.from_numpy(XT)).numpy()
+    Yt = dia_stream.spmm_dia_planes_t(D, torch.from_numpy(XT)).numpy()
     Ytj = np.asarray(jops_dia.spmm_dia_t(Dj, jnp.asarray(XT)))
     assert np.all(np.abs(Yt.astype(np.float64) - Ytj) <= bound)
-    Y = spmm_dia(D, torch.from_numpy(XT.T.copy())).numpy()
+    Y = spmm(D, torch.from_numpy(XT.T.copy())).numpy()
     Yj = np.asarray(jops_dia.spmm_dia(Dj, jnp.asarray(XT.T)))
     assert Y.shape == Yj.shape == (host.num_rows, L)
     assert np.all(np.abs(Y.astype(np.float64) - Yj) <= bound.T)
-    y = spmv_dia(D, torch.from_numpy(XT[0])).numpy()
+    y = spmv(D, torch.from_numpy(XT[0])).numpy()
     yj = np.asarray(jops_dia.spmv_dia(Dj, jnp.asarray(XT[0])))
     assert np.all(np.abs(y.astype(np.float64) - yj) <= bound[0])
 
@@ -352,8 +351,8 @@ def test_carried_jax_plan_gives_same_y(kind):
         else torch.float32)
     assert D.offsets == own.offsets and torch.equal(D.data, own.data)
     x = _xt(1, n, seed=5)[0]
-    y = spmv_dia(D, torch.from_numpy(x)).numpy()
-    np.testing.assert_array_equal(y, spmv_dia(own, torch.from_numpy(x))
+    y = spmv(D, torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(y, spmv(own, torch.from_numpy(x))
                                   .numpy())
     yj = np.asarray(jds.spmv_dia_stream(Dj, jnp.asarray(x)) if kind != "dia"
                     else jops_dia.spmv_dia(Dj, jnp.asarray(x)))
@@ -380,7 +379,7 @@ def test_zero_coefficient_times_inf_is_nan():
     D = dia.to_device_dia(host, "cpu")
     x = torch.zeros(host.num_cols)
     x[8] = float("inf")
-    y = spmv_dia(D, x).numpy()
+    y = spmv(D, x).numpy()
     # row 7 reaches column 8 through offset +1 with a zero coefficient
     # (grid-row wrap); row 0 through offset +8 with a real one
     assert host.data[list(D.offsets).index(1), 7] == 0
@@ -393,12 +392,12 @@ def test_alpha_beta_and_rectangular_shapes():
     x = torch.linspace(-1, 1, 135)
     y0 = torch.ones(130)
     np.testing.assert_allclose(
-        spmv_dia(D, x, alpha=2.0, beta=0.5, y=y0).numpy(),
+        spmv(D, x, alpha=2.0, beta=0.5, y=y0).numpy(),
         2.0 * (A64 @ x.numpy()) + 0.5, rtol=1e-5, atol=1e-5)
     X = torch.ones(135, 2)
     Y0 = torch.full((130, 2), 3.0)
     np.testing.assert_allclose(
-        spmm_dia(D, X, alpha=-1.0, beta=1.0, Y=Y0).numpy(),
+        spmm(D, X, alpha=-1.0, beta=1.0, Y=Y0).numpy(),
         3.0 - A64 @ np.ones((135, 2)), rtol=1e-5, atol=1e-5)
 
 

@@ -15,11 +15,10 @@ several L on var-7, var-27, rectangular bands, offsets past n, K = 0,
 K = 64 and n smaller than a row block. The emulation imports no JAX:
 the card tests (``test_torch_cuda.py``) hold K5's and K5d's Y to it.
 
-The wrapper refuses a library whose geometry differs from the Python
-mirror before anything is launched.
+A launch checks that geometry against the library's through
+``_build.geometry`` (``test_torch_layers.py``).
 """
 
-import ctypes
 import re
 from pathlib import Path
 
@@ -35,7 +34,7 @@ from tpusparse_torch.formats.dia import (
     to_device_dia,
 )
 from tpusparse_torch.io import generators as gen
-from tpusparse_torch.kernels import _build, dia_stream
+from tpusparse_torch.kernels import dia_stream
 
 ROOT = Path(__file__).resolve().parent.parent
 LS = (1, 3, 16, 33)
@@ -171,50 +170,3 @@ def test_geometry_mirrors_the_source():
         assert dia_stream.k5_geometry(itemsize) == (
             c["kThreads"], c["kRowBytes"] // itemsize,
             c["kVectorBytes"] // itemsize)
-
-
-class _Library:
-    """Stand-in for the CUDA library: K5's geometry with ``rows_skew``
-    more rows a thread, or none (``known=False``); any kernel entry
-    fails the test."""
-
-    def __init__(self, rows_skew=0, known=True):
-        self.rows_skew, self.known = rows_skew, known
-
-    def tps_dia_planes_geometry(self, value_bytes, out):
-        if not self.known:
-            return 1
-        threads, rows, vector = dia_stream.k5_geometry(value_bytes)
-        (ctypes.c_int * 3).from_address(out)[:] = [
-            threads, rows + self.rows_skew, vector]
-        return 0
-
-    def __getattr__(self, name):
-        raise AssertionError(f"{name} launched")
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """Install a stand-in library (fresh geometry cache)."""
-    def install(**kw):
-        lib = _Library(**kw)
-        monkeypatch.setattr(_build, "library", lambda: lib)
-        monkeypatch.setattr(dia_stream, "_lib_geometry", {})
-        return lib
-    return install
-
-
-@pytest.mark.parametrize("plane_dtype", PLANE_DTYPES)
-def test_k5_launch_refuses_a_library_of_another_geometry(stand_in,
-                                                         plane_dtype):
-    """K5's launch (the CUDA path of ``spmm_dia_planes_t``) checks the
-    library's geometry against the mirror the emulation uses: another
-    run of rows a thread, or no geometry for the value size, raises
-    before anything is launched; the mirror's own passes."""
-    D = K5_CASES["var-7-15"](plane_dtype)
-    XT = torch.zeros((2, D.num_cols), dtype=_value_dtype(plane_dtype))
-    for kw in ({"rows_skew": 2}, {"known": False}):
-        stand_in(**kw)
-        with pytest.raises(RuntimeError, match="geometry"):
-            dia_stream._launch_planes(D, XT)
-    dia_stream._check_geometry(stand_in(), XT.element_size(), "K5")

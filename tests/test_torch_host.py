@@ -19,13 +19,19 @@ from tpusparse.formats import dia as jdia
 from tpusparse.io import generators as jgen
 from tpusparse.io.market import read_market as jread_market
 from tpusparse.utils import compare as jcompare
-from tpusparse_torch import CsrMatrix, plan_kind, plan_matrix, plan_semantics
+from tpusparse_torch import (
+    CsrMatrix,
+    plan_kind,
+    plan_matrix,
+    plan_semantics,
+    spmv,
+)
 from tpusparse_torch.bench import models
 from tpusparse_torch.bench.timing import cuda_time_ms, graph_time_ms
 from tpusparse_torch.formats import dia
 from tpusparse_torch.io import generators as gen
 from tpusparse_torch.io.market import read_market
-from tpusparse_torch.ops.reference import spmv_numpy, spmv_reference
+from tpusparse_torch.ops.reference import spmv_numpy
 from tpusparse_torch.utils import compare
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -184,7 +190,7 @@ def test_spmv_reference_alpha_beta():
     d = csr.to("cpu")
     x = torch.linspace(-1, 1, csr.num_cols)
     y0 = torch.ones(csr.num_rows)
-    y = spmv_reference(d, x, alpha=2.0, beta=3.0, y=y0)
+    y = spmv(d, x, alpha=2.0, beta=3.0, y=y0)
     ref = 2.0 * spmv_numpy(csr, x.numpy()) + 3.0
     np.testing.assert_allclose(y.numpy(), ref, rtol=1e-6, atol=1e-6)
 
@@ -293,7 +299,7 @@ def test_port_sources_import_no_jax():
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, tpusparse_torch, tpusparse_torch.utils.carry, "
             "tpusparse_torch.bench.timing, tpusparse_torch.bench.models, "
-            "tpusparse_torch.ops.dia, tpusparse_torch.solvers.refine, "
+            "tpusparse_torch.ops.hybrid, tpusparse_torch.solvers.refine, "
             "tpusparse_torch.utils.trace; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpusparse')]; "

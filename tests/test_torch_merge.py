@@ -68,7 +68,7 @@ def test_k2_plain_matches_jax_merge(name):
         np.float32)
     yj = np.asarray(jspmv(jplan(csr, "merge", dtype=np.float32), x))
     M = _carried(csr)
-    y = merge_spmv.spmv_merge(M, torch.from_numpy(x)).numpy()
+    y = merge_spmv.merge_matvec(M, torch.from_numpy(x)).numpy()
     assert y.shape == yj.shape == (csr.num_rows,) and y.dtype == np.float32
     exact, ax, nnz_i = _bounds(csr, x)
     assert compare_results(y, exact)[0]

@@ -16,7 +16,8 @@ row. The emulation imports no JAX: the card tests
 
 The wrapper refuses a plan without tile starts, with the starts of
 another tile size, or a library whose tile or group geometry differs
-from the Python mirror, before anything is launched.
+from the Python mirror, before anything is launched (the stand-in
+library is ``test_torch_layers.py``'s).
 """
 
 import dataclasses
@@ -30,7 +31,8 @@ import torch
 from tpusparse_torch import CsrMatrix
 from tpusparse_torch.io import generators as gen
 from tpusparse_torch.io.market import read_market
-from tpusparse_torch.kernels import _build, merge_spmv, spmm_merge
+from tpusparse_torch.kernels import merge_spmv, spmm_merge
+from test_torch_layers import stand_in  # noqa: F401 (a fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 TILE = merge_spmv.TILE_ITEMS
@@ -181,39 +183,6 @@ def test_group_geometry_mirrors_the_source():
                 TILE * w // k3["kBlock"]
 
 
-class _Library:
-    """Stand-in for the CUDA library: its tile and group geometry; any
-    kernel entry fails the test."""
-
-    def __init__(self, tile=TILE, group_skew=0):
-        self.tile, self.group_skew = tile, group_skew
-
-    def tps_merge_spmv_tile_items(self):
-        return self.tile
-
-    def tps_merge_spmm_group_items(self, L, value_bytes):
-        return spmm_merge.group_items(L, value_bytes) + self.group_skew
-
-    def __getattr__(self, name):
-        raise AssertionError(f"{name} launched")
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """Install a stand-in library (fresh geometry caches); returns a
-    setter for its geometry."""
-    monkeypatch.setattr(merge_spmv, "_lib_tile_items", None)
-    monkeypatch.setattr(spmm_merge, "_lib_group_items", {})
-
-    def install(**kw):
-        lib = _Library(**kw)
-        monkeypatch.setattr(_build, "library", lambda: lib)
-        monkeypatch.setattr(merge_spmv, "_lib_tile_items", None)
-        monkeypatch.setattr(spmm_merge, "_lib_group_items", {})
-        return lib
-    return install
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k3_launch_refuses_a_plan_without_its_tiles(stand_in, dtype):
     """K3's launch (the CUDA path of ``merge_matmat``) needs the plan's
@@ -233,5 +202,5 @@ def test_k3_launch_refuses_a_plan_without_its_tiles(stand_in, dtype):
     with pytest.raises(RuntimeError, match="tile"):
         spmm_merge._launch(M, X)
     stand_in(group_skew=8)
-    with pytest.raises(RuntimeError, match="group stretch"):
+    with pytest.raises(RuntimeError, match="group_items"):
         spmm_merge._launch(M, X)

@@ -46,7 +46,7 @@ from tpusparse_torch import (
     spmv,
 )
 from tpusparse_torch.formats.dia import partition_dia, select_diagonals
-from tpusparse_torch.kernels import dia_nmajor, dia_stream
+from tpusparse_torch.kernels import _build, dia_nmajor, dia_stream
 from tpusparse_torch.utils.carry import plan_from_arrays
 
 U = 2.0 ** -24
@@ -69,12 +69,11 @@ def _X(n, L, seed=0):
 
 def _abs_product(D, X):
     """(|A||X|) in float64 on the masked band of ``D``."""
-    absD = dia_nmajor.DiaNMajorDevice(
-        dia_stream.from_mask_words(D.num_rows, D.num_cols, D.offsets,
-                                   D.band.vals.abs().numpy(),
-                                   D.band.mask.numpy(), "cpu"), D.L)
-    absD.band.vals = absD.band.vals.double()
-    return dia_nmajor.spmm_nmajor_plain(absD, torch.from_numpy(X).abs()
+    absB = dia_stream.from_mask_words(D.num_rows, D.num_cols, D.offsets,
+                                      D.band.vals.abs().numpy(),
+                                      D.band.mask.numpy(), "cpu")
+    absB.vals = absB.vals.double()
+    return dia_nmajor.spmm_nmajor_plain(absB, torch.from_numpy(X).abs()
                                         .double()).numpy()
 
 
@@ -91,7 +90,7 @@ def test_k7_plain_matches_b12(name, L):
     assert D.L == jD.L
     X = _X(c.num_cols, L, seed=L)
     Yj = np.asarray(jnm.spmm_dia_nmajor(jD, jnp.asarray(X)))
-    Y = dia_nmajor.nmajor_matmat(D, torch.from_numpy(X))
+    Y = dia_nmajor.nmajor_matmat(D.band, torch.from_numpy(X))
     assert Y.shape == (c.num_rows, L) and Y.dtype == torch.float32
     bound = 2 * len(D.offsets) * U * _abs_product(D, X)
     assert np.all(np.abs(Y.numpy().astype(np.float64) - Yj) <= bound)
@@ -208,10 +207,11 @@ def test_more_columns_than_the_plan_raise_as_in_jax():
     with pytest.raises(ValueError, match="L <= 4"):
         cg_solve_multi(A, torch.from_numpy(X))
     with pytest.raises(TypeError, match="float32"):
-        dia_nmajor.nmajor_matmat(A.dia, torch.from_numpy(X[:, :2]).double())
+        dia_nmajor.nmajor_matmat(A.dia.band,
+                                 torch.from_numpy(X[:, :2]).double())
     with pytest.raises(ValueError, match="same device"):
-        dia_nmajor.nmajor_matmat(A.dia, torch.zeros(j.num_cols, 2,
-                                                    device="meta"))
+        dia_nmajor.nmajor_matmat(A.dia.band, torch.zeros(j.num_cols, 2,
+                                                         device="meta"))
 
 
 @pytest.mark.parametrize("L", [4, 32])
@@ -229,7 +229,7 @@ def test_dia_nmajor_carry_gives_jax_y(L):
     assert torch.equal(D.band.mask, own.band.mask)
     assert torch.equal(D.band.vals, own.band.vals)
     X = _X(j.num_cols, L, seed=9)
-    Y = dia_nmajor.nmajor_matmat(D, torch.from_numpy(X)).numpy()
+    Y = dia_nmajor.nmajor_matmat(D.band, torch.from_numpy(X)).numpy()
     Yj = np.asarray(jnm.spmm_dia_nmajor(jD, jnp.asarray(X)))
     bound = 2 * len(D.offsets) * U * _abs_product(D, X)
     assert np.all(np.abs(Y - Yj) <= bound)
@@ -261,9 +261,9 @@ def test_cg_multi_on_nmajor_plan_matches_jax_interleaved(name, L):
     jres = jcg_multi(jplan(j, "nmajor", L=L, dtype=np.float32),
                      jnp.asarray(B))
     A = plan_matrix(_port(j), "nmajor", L=L, device="cpu", dtype=np.float32)
-    before = dia_nmajor.LAUNCHES
+    before = _build.LAUNCHES["K7"]
     res = cg_solve_multi(A, torch.from_numpy(B))
-    assert dia_nmajor.LAUNCHES == before      # the plain version on the CPU
+    assert _build.LAUNCHES["K7"] == before    # the plain version on the CPU
     assert res.x.shape == B.shape and res.x.dtype == torch.float32
     _check_parity(res, jres, f"cg_multi nmajor {name} L={L}")
 

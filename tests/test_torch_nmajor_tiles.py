@@ -19,11 +19,10 @@ n, K = 0, K = 32 and n smaller than one CTA's block. The emulation
 imports no JAX: the card tests (``test_torch_cuda.py``) hold K7's Y to
 it.
 
-The wrapper refuses a library whose geometry differs from the Python
-mirror before anything is launched.
+A launch checks that geometry against the library's through
+``_build.geometry`` (``test_torch_layers.py``).
 """
 
-import ctypes
 import re
 from pathlib import Path
 
@@ -33,7 +32,7 @@ import torch
 
 from tpusparse_torch import plan_matrix
 from tpusparse_torch.io import generators as gen
-from tpusparse_torch.kernels import _build, dia_nmajor, dia_stream
+from tpusparse_torch.kernels import dia_nmajor, dia_stream
 
 ROOT = Path(__file__).resolve().parent.parent
 LS = (2, 3, 4, 5, 16, 33, 128)
@@ -127,7 +126,7 @@ def test_emulated_k7_equals_plain_bitwise(name, L):
     narrows it for a misaligned X)."""
     D = K7_CASES[name]()
     X = _x(D.num_rows, L, 60 + L)
-    Yp = dia_nmajor.spmm_nmajor_plain(D, X).numpy()
+    Yp = dia_nmajor.spmm_nmajor_plain(D.band, X).numpy()
     for V in (v for v in (4, 2, 1) if L % v == 0):
         np.testing.assert_array_equal(emulate_k7(D, X.numpy(), V), Yp)
 
@@ -178,36 +177,3 @@ def test_geometry_mirrors_the_source():
     geo = dia_nmajor.k7_geometry(16, 4)
     assert geo["groups"] == 4 and geo["runs"] == c["kThreads"] // 4
     assert geo["cta_rows"] == c["kSubBlocks"] * geo["runs"] * c["kRows"]
-
-
-class _Library:
-    """Stand-in for the CUDA library: K7's geometry with ``rows_skew``
-    more rows a thread; any kernel entry fails the test."""
-
-    def __init__(self, rows_skew=0):
-        self.rows_skew = rows_skew
-
-    def tps_dia_nmajor_geometry(self, out):
-        (ctypes.c_int * 4).from_address(out)[:] = [
-            dia_nmajor.K7_THREADS, dia_nmajor.K7_ROWS + self.rows_skew,
-            dia_nmajor.K7_SUB_BLOCKS, dia_nmajor.K7_VECTOR_BYTES]
-        return 0
-
-    def __getattr__(self, name):
-        raise AssertionError(f"{name} launched")
-
-
-def test_k7_launch_refuses_a_library_of_another_geometry(monkeypatch):
-    """K7's launch (the CUDA path of ``nmajor_matmat``) checks the
-    library's geometry against the mirror the emulation uses: another
-    run of rows a thread raises before anything is launched; the
-    mirror's own passes."""
-    D = K7_CASES["n-50"]()
-    X = torch.zeros((D.num_rows, 4))
-    for skew in (2, -2):
-        monkeypatch.setattr(_build, "library", lambda: _Library(skew))
-        monkeypatch.setattr(dia_nmajor, "_lib_geometry", [])
-        with pytest.raises(RuntimeError, match="geometry"):
-            dia_nmajor._launch(D, X)
-    monkeypatch.setattr(dia_nmajor, "_lib_geometry", [])
-    dia_nmajor._check_geometry(_Library())

@@ -1,5 +1,5 @@
-"""``spmm`` on a masked band picks its kernel from X's layout
-(``kernels/dia_stream.spmm_dia_stream``).
+"""``spmm`` on a masked band picks its kernel from X's layout, in the
+dispatch layer (``ops/spmv.py``).
 
 A row-major float32 X (n, L) with 2 <= L <= 128 runs K7 on the band as
 it is, with no copy of X to (L, n), and Y comes back row-major; every
@@ -24,7 +24,7 @@ from tpusparse_torch.kernels.dia_stream import (
     spmm_dia_planes_t,
     spmm_dia_stream_t,
 )
-from tpusparse_torch.kernels.spmm_merge import spmm_merge
+from tpusparse_torch.kernels.spmm_merge import merge_matmat
 from tpusparse_torch.utils import trace
 from test_torch_trace import tracer  # noqa: F401 (a fixture)
 
@@ -129,7 +129,7 @@ def test_float32_hybrid_with_a_remainder_gives_the_same_bits(tracer):
     assert isinstance(P.dia, DiaStreamDevice)
     X = _x((P.dia.num_rows, 16), seed=3)
     Y, counters, _ = _counted(P, X)
-    want = spmm_merge(P.rest, X, beta=1.0, Y=_transposed(P.dia, X))
+    want = _transposed(P.dia, X) + merge_matmat(P.rest, X)
     assert torch.equal(Y, want)
     assert counters["spmm.nmajor"] == 1
 

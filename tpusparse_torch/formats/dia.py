@@ -14,6 +14,7 @@ Layout: ``data[k, i] = A[i, i + offsets[k]]``, zero where out of range.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -128,12 +129,20 @@ class DiaDevice:
     The counterpart of the JAX ``DiaDevice`` and of the value-plane form
     of the JAX ``DiaStreamDevice``; the TPU blocking of the latter
     ((nb, K, R, 128) planes, edge-halo slabs, a padded state width) has
-    no counterpart here."""
+    no counterpart here. ``c_offsets`` holds the offsets as the host
+    array of 64-bit ints K5 takes by value, built once with the
+    operand."""
 
     num_rows: int
     num_cols: int
     offsets: tuple
     data: torch.Tensor
+    c_offsets: ctypes.Array = dataclasses.field(init=False, repr=False,
+                                                compare=False)
+
+    def __post_init__(self):
+        self.c_offsets = (ctypes.c_longlong * len(self.offsets))(
+            *self.offsets)
 
 
 def to_device_dia(dia_host: DiaHost, device,

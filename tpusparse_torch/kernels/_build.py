@@ -13,16 +13,24 @@ only from the sources in the package. It writes into
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. The sources compile in parallel, one
 ``nvcc`` process each.
+
+Every kernel launch goes through ``launch``, which runs the C entry on
+the device's current stream, checks its CUDA error code and counts it in
+``LAUNCHES``; every check of a kernel's geometry against its Python
+mirror goes through ``geometry``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from tpusparse_torch.utils import trace
 
@@ -52,7 +60,7 @@ SIGNATURES = {
     "tps_dia_planes": (_P, _I32, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
     # the same with float64 planes and no plane_bf16 flag
     "tps_dia_planes_f64": (_P, _P, _P, _I64, _I64, _I32, _I32, _P, _P),
-    # value bytes, out (host int[4]) -> K5's geometry (0 = known size)
+    # value bytes, out (host int[3]) -> K5's geometry (0 = known size)
     "tps_dia_planes_geometry": (_I32, _P),
     # row_offsets, col_indices, values, x, y, tile_coords (the plan's),
     # carry_rows, carry_vals, num_rows, nnz, num_tiles, stream
@@ -97,6 +105,14 @@ SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+
+# Kernel launches since the count was last reset, by kernel: K1, K1d,
+# K2, K2d, K3, K3d, K4, K4d, K5, K5d, K6, K7, K8, K8d, KR, KRd (plain
+# runs are not counted).
+LAUNCHES: collections.Counter = collections.Counter()
+
+# (geometry entry, its arguments) -> what the library answered
+_geometry: dict = {}
 
 
 def _units() -> list[Path]:
@@ -192,3 +208,39 @@ def check(rc: int, what: str) -> None:
     """Raise when a C entry reports a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def launch(entry: str, label: str, device, *args) -> None:
+    """Run the kernel entry ``entry`` with ``args`` and, as its last
+    argument, ``device``'s current stream, under that device; raise on
+    the CUDA error code it returns, naming it; count one launch of
+    ``label`` in ``LAUNCHES``."""
+    fn = getattr(library(), entry)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(rc, entry)
+    LAUNCHES[label] += 1
+
+
+def geometry(entry: str, args: tuple, want, kernel: str, mirror: str) -> None:
+    """Raise unless the library's geometry entry ``entry`` gives
+    ``want``, the value its Python mirror in ``mirror`` computes for
+    kernel ``kernel``. A tuple ``want`` is read from an int array the
+    entry fills after ``args`` (a nonzero return: no geometry for
+    ``args``); a whole number is the entry's return value. The library
+    is asked once for each ``(entry, args)``."""
+    key = (entry, args)
+    if key not in _geometry:
+        fn = getattr(library(), entry)
+        if isinstance(want, tuple):
+            out = (ctypes.c_int * len(want))()
+            if fn(*args, ctypes.addressof(out)):
+                raise RuntimeError(f"{kernel} has no geometry {entry}{args} "
+                                   "in the library")
+            _geometry[key] = tuple(out)
+        else:
+            _geometry[key] = fn(*args)
+    if _geometry[key] != want:
+        raise RuntimeError(
+            f"{kernel}'s geometry {entry}{args} is {_geometry[key]} in the "
+            f"library, {want} in {mirror}")

@@ -34,10 +34,6 @@ from tpusparse_torch.utils import trace
 # product runs over at most bc of them per block.
 MAX_BLOCK_ENTRIES = 1 << 20
 
-# K8 launches since the count was last reset (plain runs not counted).
-LAUNCHES = 0
-# K8d (float64) launches, counted apart from K8's.
-LAUNCHES_F64 = 0
 # the span of a launch, by value type
 SPANS = {torch.float32: "kernel.K8", torch.float64: "kernel.K8d"}
 
@@ -95,26 +91,16 @@ def _check(A: BcsrMatrix, X: torch.Tensor) -> None:
 
 
 def _launch(A: BcsrMatrix, X: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_F64
     L = X.shape[1]
     Y = torch.empty((A.num_rows, L), dtype=X.dtype, device=X.device)
     if A.num_rows == 0:
         return Y
     f64 = X.dtype == torch.float64
-    name = "tps_bsr_f64" if f64 else "tps_bsr"
-    lib = _build.library()
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = getattr(lib, name)(
-            A.block_row_offsets.data_ptr(), A.block_col_indices.data_ptr(),
-            A.blocks.data_ptr(), X.data_ptr(), Y.data_ptr(), A.num_rows,
-            A.num_cols, A.num_block_rows, A.block_rows, A.block_cols, L,
-            stream)
-    _build.check(rc, name)
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    _build.launch("tps_bsr_f64" if f64 else "tps_bsr", "K8d" if f64 else "K8",
+                  X.device, A.block_row_offsets.data_ptr(),
+                  A.block_col_indices.data_ptr(), A.blocks.data_ptr(),
+                  X.data_ptr(), Y.data_ptr(), A.num_rows, A.num_cols,
+                  A.num_block_rows, A.block_rows, A.block_cols, L)
     return Y
 
 
@@ -129,21 +115,3 @@ def bsr_matmat(A: BcsrMatrix, X: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return bsr_spmm_plain(A, X)
     raise ValueError(f"no K8 path for device {X.device}")
-
-
-def bsr_spmm(A: BcsrMatrix, X, alpha=1.0, beta=0.0, Y=None):
-    """Y = alpha * A @ X + beta * Y for X (num_cols, L), cast to the
-    operand's type."""
-    Y_new = bsr_matmat(A, X.to(A.blocks.dtype).contiguous())
-    if beta == 0.0 or Y is None:
-        return alpha * Y_new if alpha != 1.0 else Y_new
-    return alpha * Y_new + beta * Y
-
-
-def bsr_spmv(A: BcsrMatrix, x, alpha=1.0, beta=0.0, y=None):
-    """y = alpha * A @ x + beta * y: K8 (K8d) at L = 1."""
-    y_new = bsr_matmat(
-        A, x.to(A.blocks.dtype).reshape(-1, 1).contiguous())[:, 0]
-    if beta == 0.0 or y is None:
-        return alpha * y_new if alpha != 1.0 else y_new
-    return alpha * y_new + beta * y

@@ -9,6 +9,10 @@ them, so the card's Y is the CPU's bits and repeats them call after
 call. CUDA's ``index_add_`` adds with atomics in no fixed order. It
 replaces no Pallas kernel: the JAX package's reference product is XLA's
 segment sum (``tpusparse/ops/reference.py``).
+
+``csr_matvec_plain`` and ``csr_matmat_plain`` are the ``index_add_``
+products on any device: the order KR adds in, and the plain versions
+behind the merge and row-split kernels.
 """
 
 from __future__ import annotations
@@ -18,10 +22,37 @@ import torch
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.utils import trace
 
-# KR launches since the count was last reset (CPU runs not counted).
-LAUNCHES = 0
-# KRd (float64) launches, counted apart.
-LAUNCHES_F64 = 0
+
+def expand_row_ids(row_offsets: torch.Tensor, num_rows: int,
+                   nnz: int) -> torch.Tensor:
+    """Per-nonzero row ids (nnz,) int64 from CSR row offsets (``nnz``
+    given, so a CUDA expansion needs no host sync)."""
+    lengths = (row_offsets[1:] - row_offsets[:-1]).to(torch.int64)
+    return torch.repeat_interleave(
+        torch.arange(num_rows, device=row_offsets.device), lengths,
+        output_size=nnz)
+
+
+def csr_matvec_plain(num_rows: int, row_offsets, col_indices, values,
+                     x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for CSR tensors, in plain torch, in the dtype of
+    ``values``."""
+    rows = expand_row_ids(row_offsets, num_rows, col_indices.shape[0])
+    prod = values * x.to(values.dtype)[col_indices.to(torch.int64)]
+    y = torch.zeros(num_rows, dtype=values.dtype, device=values.device)
+    return y.index_add_(0, rows, prod)
+
+
+def csr_matmat_plain(num_rows: int, row_offsets, col_indices, values,
+                     X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for CSR tensors and X (num_cols, L), in plain torch, in
+    the dtype of ``values``: gather the rows of X, scale, ``index_add_``
+    per row."""
+    rows = expand_row_ids(row_offsets, num_rows, col_indices.shape[0])
+    prod = values[:, None] * X.to(values.dtype)[col_indices.to(torch.int64)]
+    Y = torch.zeros((num_rows, X.shape[1]), dtype=values.dtype,
+                    device=values.device)
+    return Y.index_add_(0, rows, prod)
 
 
 def csr_reference_kernel(num_rows: int, row_offsets: torch.Tensor,
@@ -31,7 +62,6 @@ def csr_reference_kernel(num_rows: int, row_offsets: torch.Tensor,
     in the values' type (float32: KR, float64: KRd); X is cast to it.
     No rows or no lanes launch nothing. Raises for another value type or
     device; never falls back."""
-    global LAUNCHES, LAUNCHES_F64
     if values.device.type != "cuda":
         raise ValueError(f"KR runs on a CUDA tensor, got {values.device}")
     if values.dtype not in (torch.float32, torch.float64):
@@ -56,17 +86,8 @@ def csr_reference_kernel(num_rows: int, row_offsets: torch.Tensor,
         v = values.contiguous()
         Xc = X.to(values.dtype).contiguous()
         Y = torch.empty((num_rows, L), dtype=values.dtype, device=dev)
-        name = "tps_csr_reference_f64" if f64 else "tps_csr_reference"
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = getattr(lib, name)(ro.data_ptr(), ci.data_ptr(),
-                                    v.data_ptr(), Xc.data_ptr(),
-                                    Y.data_ptr(), num_rows, L,
-                                    int(index64), stream)
-        _build.check(rc, name)
-        if f64:
-            LAUNCHES_F64 += 1
-        else:
-            LAUNCHES += 1
+        _build.launch("tps_csr_reference_f64" if f64 else "tps_csr_reference",
+                      "KRd" if f64 else "KR", dev, ro.data_ptr(),
+                      ci.data_ptr(), v.data_ptr(), Xc.data_ptr(),
+                      Y.data_ptr(), num_rows, L, int(index64))
         return Y

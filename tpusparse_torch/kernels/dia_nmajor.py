@@ -4,11 +4,12 @@ Port of ``tpusparse/kernels/dia_nmajor.py``. A square
 constant-coefficient band of at most 32 diagonals (the masked operand of
 K1, ``dia_stream.DiaStreamDevice``) multiplies a block of right-hand
 sides kept in its natural row-major (n, L) layout: Y (n, L) = A X (n, L),
-with no transposes around the kernel. Two routes reach it: the explicit
-n-major plan (``plan_matrix(..., 'nmajor', L=L)``, a ``DiaNMajorDevice``),
-and ``spmm`` on AUTO's masked band with a row-major float32 X of 2 to
-128 columns (``dia_stream.spmm_dia_stream``), which wraps the plan's
-band in a ``DiaNMajorDevice`` at each call and so makes no second plan.
+with no transposes around the kernel. K7 takes the band itself
+(``nmajor_matmat``), so two routes reach it with one operand: the
+explicit n-major plan (``plan_matrix(..., 'nmajor', L=L)``, a
+``DiaNMajorDevice`` around the band), and ``spmm`` on AUTO's masked band
+with a row-major float32 X of 2 to 128 columns (``ops/spmv.py`` picks the
+route).
 
 K7 (``csrc/dia_nmajor.cu``) replaces the Pallas kernel ``_spmm_nmajor``
 (body ``_nmajor_kernel``). It reads K1's per-row mask words and its K
@@ -47,15 +48,12 @@ from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.dia_stream import (
     DiaStreamDevice,
     _maskable,
-    kernel_layout,
     to_device_dia_stream,
 )
 
-# The JAX package's padded lane counts (divisors of 128, floored at 4).
+# The JAX package's padded lane counts (divisors of 128, floored at 4);
+# the last is the most columns K7 takes.
 LANE_COUNTS = (4, 8, 16, 32, 64, 128)
-
-# K7 launches since the count was last reset (plain runs not counted).
-LAUNCHES = 0
 
 # K7's geometry, mirrored from csrc/dia_nmajor.cu (kThreads, kRows,
 # kSubBlocks, kVectorBytes) and checked against the library at every
@@ -65,9 +63,6 @@ K7_THREADS = 256
 K7_ROWS = 4
 K7_SUB_BLOCKS = 1
 K7_VECTOR_BYTES = 16
-
-# the library's geometry, read once
-_lib_geometry: list = []
 
 
 def k7_lane_group(L: int, *tensors) -> int:
@@ -141,11 +136,10 @@ def to_device_dia_nmajor(dia_host, L: int, device) -> DiaNMajorDevice:
                            padded_lane_count(L))
 
 
-def spmm_nmajor_plain(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K7: (n, L) -> (n, L), the same products
-    and sums in the same order as K7 (and as K1's plain version on
-    X.T)."""
-    B = D.band
+def spmm_nmajor_plain(B: DiaStreamDevice, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7 on the band ``B``: (n, L) -> (n, L),
+    the same products and sums in the same order as K7 (and as K1's
+    plain version on X.T)."""
     n, L = X.shape
     E = max((abs(o) for o in B.offsets), default=0)
     xp = torch.zeros((n + 2 * E, L), dtype=X.dtype, device=X.device)
@@ -158,20 +152,17 @@ def spmm_nmajor_plain(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _check(D: DiaNMajorDevice, X: torch.Tensor) -> None:
-    B = D.band
-    if X.dim() != 2 or X.shape[0] != D.num_cols:
+def _check(B: DiaStreamDevice, X: torch.Tensor) -> None:
+    if X.dim() != 2 or X.shape[0] != B.num_cols:
         raise ValueError(
-            f"X must be ({D.num_cols}, L), got {tuple(X.shape)}")
-    if X.shape[1] > D.L:
-        raise ValueError(
-            f"n-major plan built for L <= {D.L} RHS columns, got "
-            f"{X.shape[1]}; rebuild with plan_matrix(..., "
-            f"strategy='nmajor', L={X.shape[1]})")
+            f"X must be ({B.num_cols}, L), got {tuple(X.shape)}")
+    if X.shape[1] > LANE_COUNTS[-1]:
+        raise ValueError(f"K7 takes L <= {LANE_COUNTS[-1]} columns, got "
+                         f"{X.shape[1]}")
     if X.dtype != torch.float32 or B.vals.dtype != torch.float32:
         raise TypeError(f"K7 is float32 only (operand {B.vals.dtype}, X "
                         f"{X.dtype})")
-    if B.mask.dtype != torch.int32 or B.mask.shape != (D.num_rows,):
+    if B.mask.dtype != torch.int32 or B.mask.shape != (B.num_rows,):
         raise TypeError("mask must be (num_rows,) int32")
     if not (X.is_contiguous() and B.mask.is_contiguous()):
         raise ValueError("K7 needs contiguous X and mask")
@@ -181,64 +172,26 @@ def _check(D: DiaNMajorDevice, X: torch.Tensor) -> None:
             "needed")
 
 
-def _check_geometry(lib) -> None:
-    """Raise unless the library's K7 geometry is the mirror's."""
-    want = (K7_THREADS, K7_ROWS, K7_SUB_BLOCKS, K7_VECTOR_BYTES)
-    if not _lib_geometry:
-        out = (ctypes.c_int * len(want))()
-        lib.tps_dia_nmajor_geometry(ctypes.addressof(out))
-        _lib_geometry.append(tuple(out))
-    if _lib_geometry[0] != want:
-        raise RuntimeError(f"K7's geometry is {_lib_geometry[0]} in the "
-                           f"library, {want} in dia_nmajor.py")
-
-
-def _launch(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
-    B = D.band
+def _launch(B: DiaStreamDevice, X: torch.Tensor) -> torch.Tensor:
     n, L = X.shape
-    K = len(B.offsets)
-    lib = _build.library()
-    _check_geometry(lib)
+    _build.geometry("tps_dia_nmajor_geometry", (),
+                    (K7_THREADS, K7_ROWS, K7_SUB_BLOCKS, K7_VECTOR_BYTES),
+                    "K7", "dia_nmajor.py")
     Y = torch.empty((n, L), dtype=X.dtype, device=X.device)
-    offs = (ctypes.c_int * max(K, 1))(*B.offsets)
-    vals = (ctypes.c_float * max(K, 1))(*B.vals_host)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = lib.tps_dia_nmajor(B.mask.data_ptr(), X.data_ptr(),
-                                Y.data_ptr(), n, L, k7_lane_group(L, X, Y),
-                                K, ctypes.addressof(offs),
-                                ctypes.addressof(vals), stream)
-    _build.check(rc, "tps_dia_nmajor")
-    LAUNCHES += 1
+    _build.launch("tps_dia_nmajor", "K7", X.device, B.mask.data_ptr(),
+                  X.data_ptr(), Y.data_ptr(), n, L, k7_lane_group(L, X, Y),
+                  len(B.offsets), ctypes.addressof(B.c_offsets),
+                  ctypes.addressof(B.c_vals))
     return Y
 
 
-def nmajor_matmat(D: DiaNMajorDevice, X: torch.Tensor) -> torch.Tensor:
-    """A @ X for X (num_cols, L) float32, L at most the plan's ``L``,
-    row-major: K7 on a CUDA tensor, the plain version on a CPU tensor;
-    any other device raises."""
-    _check(D, X)
+def nmajor_matmat(B: DiaStreamDevice, X: torch.Tensor) -> torch.Tensor:
+    """A @ X for the float32 masked band ``B`` and X (num_cols, L)
+    float32, row-major, L <= 128: K7 on a CUDA tensor, the plain version
+    on a CPU tensor; any other device raises."""
+    _check(B, X)
     if X.device.type == "cuda":
-        return _launch(D, X)
+        return _launch(B, X)
     if X.device.type == "cpu":
-        return spmm_nmajor_plain(D, X)
+        return spmm_nmajor_plain(B, X)
     raise ValueError(f"no K7 path for device {X.device}")
-
-
-def spmm_dia_nmajor(D: DiaNMajorDevice, X, alpha=1.0, beta=0.0, Y=None):
-    """Y = alpha * A @ X + beta * Y for X (num_cols, L <= D.L), cast to
-    float32."""
-    Y_new = nmajor_matmat(D, kernel_layout(X.to(torch.float32)))
-    if beta == 0.0 or Y is None:
-        return alpha * Y_new if alpha != 1.0 else Y_new
-    return alpha * Y_new + beta * Y
-
-
-def spmv_dia_nmajor(D: DiaNMajorDevice, x, alpha=1.0, beta=0.0, y=None):
-    """y = alpha * A @ x + beta * y: K7 at L = 1."""
-    y_new = nmajor_matmat(
-        D, x.to(torch.float32).reshape(-1, 1).contiguous())[:, 0]
-    if beta == 0.0 or y is None:
-        return alpha * y_new if alpha != 1.0 else y_new
-    return alpha * y_new + beta * y

@@ -17,12 +17,12 @@ same y. K1d and K5d are the same CUDA templates at IEEE float64; they
 replace the double-float (two-f32) kernels
 ``_spmm_dia_stream_df_edge_mask`` and ``_spmm_dia_stream_df_edge``, whose
 hi/lo split of planes, coefficients, x and y has no counterpart. A
-kernel runs in its operand's type: ``spmv_dia_stream`` and
-``spmm_dia_stream`` cast x to it, and a kernel-level call with x of
-another type raises TypeError. The TPU layout's blocking ((nb, R, 128)
-blocks, edge-halo x slabs, padded transposed state) has no
-counterpart: the mask is flat (n,) words, the planes (K, n), and x is
-(L, num_cols), the JAX package's transposed layout, unpadded.
+kernel runs in its operand's type: the dispatch layer (``ops/spmv.py``)
+casts x to it, and a kernel-level call with x of another type raises
+TypeError. The TPU layout's blocking ((nb, R, 128) blocks, edge-halo x
+slabs, padded transposed state) has no counterpart: the mask is flat
+(n,) words, the planes (K, n), and x is (L, num_cols), the JAX
+package's transposed layout, unpadded.
 ``fits_stream``, ``choose_block_rows`` and the other block-geometry
 helpers go with it.
 """
@@ -49,23 +49,12 @@ MASK_MAX_PLANES = 32
 # K5 takes its offsets by value in kernel parameters (formats.dia.MAX_DIAGS).
 PLANES_MAX = 64
 
-# K1 launches since the count was last reset (plain runs not counted).
-LAUNCHES = 0
-# K5 launches, counted apart from K1's.
-PLANES_LAUNCHES = 0
-# K1d and K5d (float64) launches, counted apart from their float32 twins'.
-LAUNCHES_F64 = 0
-PLANES_LAUNCHES_F64 = 0
-
 # The DIA launches (K1, K5 here, K7 in dia_nmajor.py) open no kernel.*
 # span of utils/trace.py, unlike the other kernels' launches. A solver
 # makes one every iteration on the host's path from the convergence
 # sync to the iteration's first kernel, and a span there added about 3
 # points of device idle to a profiled CG loop on HPCG's 27-point stencil
 # (H100).
-
-# ctypes scalar of K1's host coefficients, by operand type.
-_C_VALS = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 # K1's geometry, mirrored from csrc/dia_masked.cu (kThreads, kRowBytes,
 # kVectorBytes) and checked against the library at every launch: threads
@@ -81,9 +70,6 @@ K1_VECTOR_BYTES = 16
 K5_THREADS = 256
 K5_ROW_BYTES = 16
 K5_VECTOR_BYTES = 16
-
-# the library's geometry by (kernel, value size), read once
-_lib_geometry: dict = {}
 
 
 def k1_geometry(itemsize: int) -> tuple:
@@ -127,8 +113,10 @@ class DiaStreamDevice:
     ``mask``: (num_rows,) int32 words (the uint32 bits viewed as int32);
     ``offsets``: static tuple of K ints; ``vals``: (K,) float32 (K1) or
     float64 (K1d) on the device (read by the plain version);
-    ``vals_host``: the same K values as Python floats, passed by value
-    to the kernel."""
+    ``vals_host``: the same K values as Python floats. ``c_offsets`` and
+    ``c_vals`` hold the offsets and the values, in ``vals``' type, as the
+    host arrays K1 (and K7) take by value, built once with the
+    operand."""
 
     num_rows: int
     num_cols: int
@@ -136,6 +124,17 @@ class DiaStreamDevice:
     vals: torch.Tensor
     mask: torch.Tensor
     vals_host: tuple
+    c_offsets: ctypes.Array = dataclasses.field(init=False, repr=False,
+                                                compare=False)
+    c_vals: ctypes.Array = dataclasses.field(init=False, repr=False,
+                                             compare=False)
+
+    def __post_init__(self):
+        K = max(len(self.offsets), 1)
+        scalar = (ctypes.c_double if self.vals.dtype == torch.float64
+                  else ctypes.c_float)
+        self.c_offsets = (ctypes.c_int * K)(*self.offsets)
+        self.c_vals = (scalar * K)(*self.vals_host)
 
 
 def from_mask_words(num_rows: int, num_cols: int, offsets, vals, words,
@@ -211,48 +210,16 @@ def _check(D: DiaStreamDevice, XT: torch.Tensor) -> None:
             "needed")
 
 
-def _check_geometry(lib, itemsize: int, kernel: str = "K1") -> None:
-    """Raise unless the library's K1 (or K5) geometry for ``itemsize`` is
-    the mirror's (``k1_geometry``, ``k5_geometry``)."""
-    entry, mirror = {"K1": ("tps_dia_masked_geometry", k1_geometry),
-                     "K5": ("tps_dia_planes_geometry", k5_geometry)}[kernel]
-    want = mirror(itemsize)
-    key = (kernel, itemsize)
-    if key not in _lib_geometry:
-        out = (ctypes.c_int * len(want))()
-        if getattr(lib, entry)(itemsize, ctypes.addressof(out)):
-            raise RuntimeError(f"{kernel} has no geometry for {itemsize}-"
-                               "byte values")
-        _lib_geometry[key] = tuple(out)
-    if _lib_geometry[key] != want:
-        raise RuntimeError(
-            f"{kernel}'s geometry for {itemsize}-byte values is "
-            f"{_lib_geometry[key]} in the library, {want} in "
-            "dia_stream.py")
-
-
 def _launch(D: DiaStreamDevice, XT: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_F64
     L, n = XT.shape
-    K = len(D.offsets)
-    lib = _build.library()
-    _check_geometry(lib, XT.element_size())
     f64 = XT.dtype == torch.float64
+    _build.geometry("tps_dia_masked_geometry", (XT.element_size(),),
+                    k1_geometry(XT.element_size()), "K1", "dia_stream.py")
     Y = torch.empty((L, n), dtype=XT.dtype, device=XT.device)
-    offs = (ctypes.c_int * max(K, 1))(*D.offsets)
-    vals = (_C_VALS[XT.dtype] * max(K, 1))(*D.vals_host)
-    name = "tps_dia_masked_f64" if f64 else "tps_dia_masked"
-    with torch.cuda.device(XT.device):
-        stream = torch.cuda.current_stream(XT.device).cuda_stream
-        rc = getattr(lib, name)(D.mask.data_ptr(), XT.data_ptr(),
-                                Y.data_ptr(), n, L, K,
-                                ctypes.addressof(offs),
-                                ctypes.addressof(vals), stream)
-    _build.check(rc, name)
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    _build.launch("tps_dia_masked_f64" if f64 else "tps_dia_masked",
+                  "K1d" if f64 else "K1", XT.device, D.mask.data_ptr(),
+                  XT.data_ptr(), Y.data_ptr(), n, L, len(D.offsets),
+                  ctypes.addressof(D.c_offsets), ctypes.addressof(D.c_vals))
     return Y
 
 
@@ -318,30 +285,20 @@ def _check_planes(D: DiaDevice, XT: torch.Tensor) -> None:
 
 
 def _launch_planes(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
-    global PLANES_LAUNCHES, PLANES_LAUNCHES_F64
     L, K, n = XT.shape[0], len(D.offsets), D.num_rows
     if n == 0 or L == 0 or K == 0:
         return torch.zeros((L, n), dtype=XT.dtype, device=XT.device)
-    lib = _build.library()
-    _check_geometry(lib, XT.element_size(), "K5")
+    _build.geometry("tps_dia_planes_geometry", (XT.element_size(),),
+                    k5_geometry(XT.element_size()), "K5", "dia_stream.py")
     Y = torch.empty((L, n), dtype=XT.dtype, device=XT.device)
-    offs = (ctypes.c_longlong * K)(*D.offsets)
-    f64 = XT.dtype == torch.float64
-    with torch.cuda.device(XT.device):
-        stream = torch.cuda.current_stream(XT.device).cuda_stream
-        args = (XT.data_ptr(), Y.data_ptr(), n, D.num_cols, L, K,
-                ctypes.addressof(offs), stream)
-        if f64:
-            rc = lib.tps_dia_planes_f64(D.data.data_ptr(), *args)
-        else:
-            rc = lib.tps_dia_planes(D.data.data_ptr(),
-                                    int(D.data.dtype == torch.bfloat16),
-                                    *args)
-    _build.check(rc, "tps_dia_planes_f64" if f64 else "tps_dia_planes")
-    if f64:
-        PLANES_LAUNCHES_F64 += 1
+    args = (XT.data_ptr(), Y.data_ptr(), n, D.num_cols, L, K,
+            ctypes.addressof(D.c_offsets))
+    if XT.dtype == torch.float64:
+        _build.launch("tps_dia_planes_f64", "K5d", XT.device,
+                      D.data.data_ptr(), *args)
     else:
-        PLANES_LAUNCHES += 1
+        _build.launch("tps_dia_planes", "K5", XT.device, D.data.data_ptr(),
+                      int(D.data.dtype == torch.bfloat16), *args)
     return Y
 
 
@@ -357,52 +314,3 @@ def spmm_dia_planes_t(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
     if XT.device.type == "cpu":
         return spmm_dia_planes_plain(D, XT)
     raise ValueError(f"no K5 path for device {XT.device}")
-
-
-def spmv_dia_stream(D: DiaStreamDevice, x, alpha=1.0, beta=0.0, y=None):
-    """y = alpha * A @ x + beta * y at L = 1."""
-    y_new = spmm_dia_stream_t(D, x.to(D.vals.dtype).reshape(1, -1))[0]
-    if beta == 0.0 or y is None:
-        return alpha * y_new if alpha != 1.0 else y_new
-    return alpha * y_new + beta * y
-
-
-def kernel_layout(T: torch.Tensor) -> torch.Tensor:
-    """``T`` made contiguous, the layout a DIA kernel reads, at the
-    public ``spmm`` boundary. A copy opens a ``dia.layout`` span; the
-    ``spmm.layout_bytes`` counter gets the bytes it reads and writes,
-    or 0 where ``T`` is contiguous already (a 1-D X's X.T, an (L, n)
-    block's transposed view, or a row-major (n, L) block for K7)."""
-    if T.is_contiguous():
-        trace.count("spmm.layout_bytes", 0)
-        return T
-    with trace.span("dia.layout"):
-        T = T.contiguous()
-    trace.count("spmm.layout_bytes", 2 * T.numel() * T.element_size())
-    return T
-
-
-def spmm_dia_stream(D: DiaStreamDevice, X, alpha=1.0, beta=0.0, Y=None):
-    """Y = alpha * A @ X + beta * Y for X (num_cols, L), cast to the
-    operand's type. The kernel follows X's layout: a row-major float32
-    block of 2 to 128 columns runs K7 (``dia_nmajor``) on X as it is,
-    over this same band, and Y comes back row-major (counter
-    ``spmm.nmajor``); any other X runs K1 or K1d on X.T, which is
-    contiguous already for L = 1 or an (L, n) block's transposed view,
-    and Y comes back as a transposed view of the (L, n) result. K7
-    equals K1 on X.T bit for bit, so Y's values do not depend on the
-    route."""
-    from tpusparse_torch.kernels import dia_nmajor   # it imports this
-
-    X = X.to(D.vals.dtype)
-    L = X.shape[-1]
-    if (X.dtype == torch.float32 and X.dim() == 2 and X.is_contiguous()
-            and 2 <= L <= dia_nmajor.LANE_COUNTS[-1]):
-        trace.count("spmm.nmajor")
-        band = dia_nmajor.DiaNMajorDevice(D, dia_nmajor.padded_lane_count(L))
-        Y_new = dia_nmajor.nmajor_matmat(band, kernel_layout(X))
-    else:
-        Y_new = spmm_dia_stream_t(D, kernel_layout(X.T)).T
-    if beta == 0.0 or Y is None:
-        return alpha * Y_new if alpha != 1.0 else Y_new
-    return alpha * Y_new + beta * Y

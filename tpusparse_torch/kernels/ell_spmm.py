@@ -50,18 +50,14 @@ import numpy as np
 import torch
 
 from tpusparse_torch.kernels import _build
-from tpusparse_torch.kernels.spmm_merge import check_operands, scaled_product
-from tpusparse_torch.ops.reference import csr_matmat_plain
+from tpusparse_torch.kernels.csr_reference import csr_matmat_plain
+from tpusparse_torch.kernels.spmm_merge import check_operands
 from tpusparse_torch.utils import trace
 
 # C: the most nonzeros one thread group walks (a longer row is cut);
 # 256 of {256, 512, 1024} on the H100 (PERF.md §6).
 ROW_CHUNK = 256
 
-# K4 launches since the count was last reset (plain runs not counted).
-LAUNCHES = 0
-# K4d (float64) launches, counted apart from K4's.
-LAUNCHES_F64 = 0
 # the span of a launch, by value type
 SPANS = {torch.float32: "kernel.K4", torch.float64: "kernel.K4d"}
 
@@ -193,9 +189,7 @@ def spmm_row_split_plain(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_F64
     B = _table_of(A, X)
-    lib = _build.library()
     L = X.shape[1]
     Y = torch.empty((A.num_rows, L), dtype=X.dtype, device=X.device)
     if A.num_rows == 0:
@@ -203,21 +197,13 @@ def _launch(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
     partials = torch.empty((B.num_chunks, L), dtype=X.dtype,
                            device=X.device)
     f64 = X.dtype == torch.float64
-    name = "tps_rowsplit_spmm_f64" if f64 else "tps_rowsplit_spmm"
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = getattr(lib, name)(
-            B.work_offsets.data_ptr(), B.work_dest.data_ptr(),
-            A.col_indices.data_ptr(),
-            A.values.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            partials.data_ptr(), B.split_rows.data_ptr(),
-            B.split_offsets.data_ptr(), B.num_work_rows, B.num_split, L,
-            stream)
-    _build.check(rc, name)
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    _build.launch("tps_rowsplit_spmm_f64" if f64 else "tps_rowsplit_spmm",
+                  "K4d" if f64 else "K4", X.device,
+                  B.work_offsets.data_ptr(), B.work_dest.data_ptr(),
+                  A.col_indices.data_ptr(), A.values.data_ptr(),
+                  X.data_ptr(), Y.data_ptr(), partials.data_ptr(),
+                  B.split_rows.data_ptr(), B.split_offsets.data_ptr(),
+                  B.num_work_rows, B.num_split, L)
     return Y
 
 
@@ -232,14 +218,3 @@ def row_split_matmat(A: RowSplitDevice, X: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return spmm_row_split_plain(A, X)
     raise ValueError(f"no K4 path for device {X.device}")
-
-
-def spmm_ell(A: RowSplitDevice, X, alpha=1.0, beta=0.0, Y=None):
-    """Y = alpha * A @ X + beta * Y via K4, X (num_cols, L) or
-    (num_cols,)."""
-    return scaled_product(row_split_matmat, A, X, alpha, beta, Y)
-
-
-def spmv_ell(A: RowSplitDevice, x, alpha=1.0, beta=0.0, y=None):
-    """y = alpha * A @ x + beta * y: K4 at L = 1."""
-    return spmm_ell(A, x, alpha=alpha, beta=beta, Y=y)

@@ -17,8 +17,8 @@ K2 (``csrc/merge_spmv.cu``) replaces the Pallas kernel
 kernels, with no float atomics, so two runs give bitwise equal y. K2d,
 the same template at IEEE float64, replaces the double-float (two-f32)
 kernel ``tpusparse/kernels/merge_df.py::_spmv_tiles_df``. A kernel runs
-in the operand's value type: ``spmv_merge`` casts x to it, and
-``merge_matvec`` with x of another type raises TypeError.
+in the operand's value type: the dispatch layer (``ops/spmv.py``) casts
+x to it, and ``merge_matvec`` with x of another type raises TypeError.
 """
 
 from __future__ import annotations
@@ -30,13 +30,9 @@ import torch
 
 from tpusparse_torch.formats.csr import VALUE_DTYPES
 from tpusparse_torch.kernels import _build
-from tpusparse_torch.ops.reference import csr_matvec_plain
+from tpusparse_torch.kernels.csr_reference import csr_matvec_plain
 from tpusparse_torch.utils import trace
 
-# K2 launches since the count was last reset (plain runs not counted).
-LAUNCHES = 0
-# K2d (float64) launches, counted apart from K2's.
-LAUNCHES_F64 = 0
 # the span of a launch, by value type
 SPANS = {torch.float32: "kernel.K2", torch.float64: "kernel.K2d"}
 
@@ -44,7 +40,6 @@ SPANS = {torch.float32: "kernel.K2", torch.float64: "kernel.K2d"}
 # csrc/merge_spmv.cu, whose tps_merge_spmv_tile_items() must agree: every
 # launch checks) and of K3 and K3d, which work on the same tiles.
 TILE_ITEMS = 1024
-_lib_tile_items: int | None = None
 
 
 def merge_tile_coords(row_offsets, nnz: int,
@@ -126,16 +121,12 @@ def _check(A: MergeDevice, x: torch.Tensor) -> None:
                          "needed")
 
 
-def plan_tile_coords(A: MergeDevice, lib, num_tiles: int,
+def plan_tile_coords(A: MergeDevice, num_tiles: int,
                      kernel: str = "K2") -> torch.Tensor:
     """The plan's tile starts, checked against the library's tile, for a
     launch of K2 or K3 (``kernel``) over ``num_tiles`` tiles."""
-    global _lib_tile_items
-    if _lib_tile_items is None:
-        _lib_tile_items = lib.tps_merge_spmv_tile_items()
-    if _lib_tile_items != TILE_ITEMS:
-        raise RuntimeError(f"K2's tile is {_lib_tile_items} merge items in "
-                           f"the library, {TILE_ITEMS} in merge_spmv.py")
+    _build.geometry("tps_merge_spmv_tile_items", (), TILE_ITEMS, "K2",
+                    "merge_spmv.py")
     C = A.tile_coords
     if C is None:
         raise ValueError(f"{kernel} needs the plan's tile_coords: build "
@@ -150,10 +141,8 @@ def plan_tile_coords(A: MergeDevice, lib, num_tiles: int,
 
 
 def _launch(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_F64
-    lib = _build.library()
     num_tiles = -(-(A.num_rows + A.nnz) // TILE_ITEMS)
-    coords = plan_tile_coords(A, lib, num_tiles)
+    coords = plan_tile_coords(A, num_tiles)
     dev = x.device
     y = torch.empty(A.num_rows, dtype=x.dtype, device=dev)
     if num_tiles == 0:
@@ -161,19 +150,12 @@ def _launch(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
     carry_rows = torch.empty(num_tiles, dtype=torch.int32, device=dev)
     carry_vals = torch.empty(num_tiles, dtype=x.dtype, device=dev)
     f64 = x.dtype == torch.float64
-    name = "tps_merge_spmv_f64" if f64 else "tps_merge_spmv"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, name)(
-            A.row_offsets.data_ptr(), A.col_indices.data_ptr(),
-            A.values.data_ptr(), x.data_ptr(), y.data_ptr(),
-            coords.data_ptr(), carry_rows.data_ptr(), carry_vals.data_ptr(),
-            A.num_rows, A.nnz, num_tiles, stream)
-    _build.check(rc, name)
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    _build.launch("tps_merge_spmv_f64" if f64 else "tps_merge_spmv",
+                  "K2d" if f64 else "K2", dev, A.row_offsets.data_ptr(),
+                  A.col_indices.data_ptr(), A.values.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), coords.data_ptr(),
+                  carry_rows.data_ptr(), carry_vals.data_ptr(), A.num_rows,
+                  A.nnz, num_tiles)
     return y
 
 
@@ -188,11 +170,3 @@ def merge_matvec(A: MergeDevice, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return spmv_merge_plain(A, x)
     raise ValueError(f"no K2 path for device {x.device}")
-
-
-def spmv_merge(A: MergeDevice, x, alpha=1.0, beta=0.0, y=None):
-    """y = alpha * A @ x + beta * y via the merge-path kernel."""
-    y_new = merge_matvec(A, x.to(A.values.dtype))
-    if beta == 0.0 or y is None:
-        return alpha * y_new if alpha != 1.0 else y_new
-    return alpha * y_new + beta * y

@@ -26,8 +26,6 @@ import torch
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.utils import trace
 
-# K6 launches since the count was last reset (plain runs not counted).
-LAUNCHES = 0
 PERMUTE_DTYPES = (torch.float32, torch.float64, torch.int32)
 
 
@@ -77,7 +75,6 @@ def _word_bytes(row_bytes: int, *tensors) -> int:
 
 
 def _launch(perm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
     x = x.contiguous()
     y = torch.empty_like(x)
     n = x.shape[0]
@@ -85,13 +82,9 @@ def _launch(perm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y
     row_bytes = x.numel() // n * x.element_size()
     wb = _word_bytes(row_bytes, x, y)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.tps_permute(perm.contiguous().data_ptr(), x.data_ptr(),
-                             y.data_ptr(), n, row_bytes // wb, wb, stream)
-    _build.check(rc, "tps_permute")
-    LAUNCHES += 1
+    _build.launch("tps_permute", "K6", x.device,
+                  perm.contiguous().data_ptr(), x.data_ptr(), y.data_ptr(),
+                  n, row_bytes // wb, wb)
     return y
 
 

@@ -16,8 +16,8 @@ padding to multiples of 8, its VMEM lane chunks and its overflow COO
 stream have no counterpart. K3d, the same template at IEEE float64,
 replaces the double-float (two-f32) kernel
 ``tpusparse/kernels/merge_df.py::_spmm_tiles_df``. A kernel runs in the
-operand's value type: ``scaled_product`` casts X to it, and a
-kernel-level call with X of another type raises TypeError.
+operand's value type: the dispatch layer (``ops/spmv.py``) casts X to
+it, and a kernel-level call with X of another type raises TypeError.
 
 The order of a lane's additions follows K3's geometry: a CTA of
 ``BLOCK_THREADS`` threads walks a tile in groups, each group one
@@ -32,14 +32,10 @@ import torch
 
 from tpusparse_torch.formats.csr import VALUE_DTYPES
 from tpusparse_torch.kernels import _build, merge_spmv
+from tpusparse_torch.kernels.csr_reference import csr_matmat_plain
 from tpusparse_torch.kernels.merge_spmv import MergeDevice
-from tpusparse_torch.ops.reference import csr_matmat_plain
 from tpusparse_torch.utils import trace
 
-# K3 launches since the count was last reset (plain runs not counted).
-LAUNCHES = 0
-# K3d (float64) launches, counted apart from K3's.
-LAUNCHES_F64 = 0
 # the span of a launch, by value type
 SPANS = {torch.float32: "kernel.K3", torch.float64: "kernel.K3d"}
 
@@ -49,8 +45,6 @@ SPANS = {torch.float32: "kernel.K3", torch.float64: "kernel.K3d"}
 BLOCK_THREADS = 128
 MAX_GROUP = 32
 LANE_BYTES = 16
-# (L, value bytes) -> the library's group_items, checked once each
-_lib_group_items: dict = {}
 
 
 def lanes_per_thread(L: int, itemsize: int) -> int:
@@ -107,24 +101,12 @@ def check_operands(A, X: torch.Tensor, kernel: str) -> None:
                          "needed")
 
 
-def _check_geometry(lib, L: int, itemsize: int) -> None:
-    key = (L, itemsize)
-    if key not in _lib_group_items:
-        _lib_group_items[key] = lib.tps_merge_spmm_group_items(L, itemsize)
-    want = group_items(L, itemsize)
-    if _lib_group_items[key] != want:
-        raise RuntimeError(
-            f"K3's group stretch at L = {L} is {_lib_group_items[key]} merge "
-            f"items in the library, {want} in spmm_merge.py")
-
-
 def _launch(A: MergeDevice, X: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_F64
-    lib = _build.library()
     L = X.shape[1]
     num_tiles = -(-(A.num_rows + A.nnz) // merge_spmv.TILE_ITEMS)
-    coords = merge_spmv.plan_tile_coords(A, lib, num_tiles, "K3")
-    _check_geometry(lib, L, X.element_size())
+    coords = merge_spmv.plan_tile_coords(A, num_tiles, "K3")
+    _build.geometry("tps_merge_spmm_group_items", (L, X.element_size()),
+                    group_items(L, X.element_size()), "K3", "spmm_merge.py")
     dev = X.device
     Y = torch.empty((A.num_rows, L), dtype=X.dtype, device=dev)
     if num_tiles == 0:
@@ -133,19 +115,11 @@ def _launch(A: MergeDevice, X: torch.Tensor) -> torch.Tensor:
     if X.data_ptr() % LANE_BYTES:
         X = X.clone()  # wide lanes load X in aligned LANE_BYTES words
     f64 = X.dtype == torch.float64
-    name = "tps_merge_spmm_f64" if f64 else "tps_merge_spmm"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, name)(
-            A.row_offsets.data_ptr(), A.col_indices.data_ptr(),
-            A.values.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            coords.data_ptr(), carry_vals.data_ptr(), A.num_rows, A.nnz,
-            num_tiles, L, stream)
-    _build.check(rc, name)
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    _build.launch("tps_merge_spmm_f64" if f64 else "tps_merge_spmm",
+                  "K3d" if f64 else "K3", dev, A.row_offsets.data_ptr(),
+                  A.col_indices.data_ptr(), A.values.data_ptr(),
+                  X.data_ptr(), Y.data_ptr(), coords.data_ptr(),
+                  carry_vals.data_ptr(), A.num_rows, A.nnz, num_tiles, L)
     return Y
 
 
@@ -160,23 +134,3 @@ def merge_matmat(A: MergeDevice, X: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return spmm_merge_plain(A, X)
     raise ValueError(f"no K3 path for device {X.device}")
-
-
-def scaled_product(matmat, A, X, alpha=1.0, beta=0.0, Y=None):
-    """alpha * matmat(A, X) + beta * Y for X (num_cols, L), or
-    (num_cols,) taken as L = 1 and given back 1-D; X is cast to the
-    operand's value type."""
-    squeeze = X.dim() == 1
-    X2 = X.reshape(-1, 1) if squeeze else X
-    Y_new = matmat(A, X2.to(A.values.dtype).contiguous())
-    if squeeze:
-        Y_new = Y_new[:, 0]
-    if beta == 0.0 or Y is None:
-        return alpha * Y_new if alpha != 1.0 else Y_new
-    return alpha * Y_new + beta * Y
-
-
-def spmm_merge(A: MergeDevice, X, alpha=1.0, beta=0.0, Y=None):
-    """Y = alpha * A @ X + beta * Y via K3, X (num_cols, L) or
-    (num_cols,)."""
-    return scaled_product(merge_matmat, A, X, alpha, beta, Y)

@@ -4,7 +4,9 @@
 Plain tensor expressions, as in the JAX package. The dot is an
 elementwise product and PyTorch's own sum reduction (not ``torch.dot``,
 which goes to cuBLAS on a CUDA tensor). The multi-RHS forms take (n, L)
-blocks and per-lane (L,) scalars. The JAX package's compensated float64
+blocks and per-lane (L,) scalars; their ``_t`` forms take (L, n) blocks,
+the DIA kernels' own layout, in which the blocked solvers keep their
+state on a plan that is all diagonals. The JAX package's compensated float64
 sum (``df_sum``) works around the TPU's emulated float64 and has no
 counterpart.
 """
@@ -44,3 +46,20 @@ def update_p_multiple(r: torch.Tensor, beta: torch.Tensor,
                       p: torch.Tensor) -> torch.Tensor:
     """Parity: update_p_multiple: r + beta[None, :] * p, beta (L,)."""
     return r + beta[None, :] * p
+
+
+def dot_multiple_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane dots of (L, n) blocks -> (L,)."""
+    return torch.sum(a * b, dim=1)
+
+
+def axpy_multiple_t(y: torch.Tensor, alpha: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """y + alpha[:, None] * x for (L, n) blocks, alpha (L,)."""
+    return y + alpha[:, None] * x
+
+
+def update_p_multiple_t(r: torch.Tensor, beta: torch.Tensor,
+                        p: torch.Tensor) -> torch.Tensor:
+    """r + beta[:, None] * p for (L, n) blocks, beta (L,)."""
+    return r + beta[:, None] * p

@@ -3,11 +3,10 @@
 Port of ``tpusparse/ops/reference.py``:
 
   * ``spmv_numpy`` — host golden model, always in float64;
-  * ``spmv_reference`` / ``spmm_reference`` — the ``reference``
-    strategy: ``csr_matvec`` / ``csr_matmat`` on the operand, in the
-    dtype of its values (float64 values give the float64 golden
-    product);
-  * ``csr_matvec`` / ``csr_matmat`` — the golden CSR products. On the
+  * ``csr_matvec`` / ``csr_matmat`` — the golden CSR products, in the
+    dtype of the values (float64 values give the float64 golden
+    product), which ``spmv`` / ``spmm`` run on a ``CsrMatrix`` operand
+    (the ``reference`` strategy). On the
     CPU: gather x (or the rows of X), multiply, ``index_add_`` over
     expanded row ids, which adds each row's products in CSR order. On
     the card: the kernel KR (KRd in float64,
@@ -15,8 +14,8 @@ Port of ``tpusparse/ops/reference.py``:
     gives the CPU's bits on every call, where CUDA's ``index_add_`` adds
     with atomics in no fixed order;
   * ``csr_matvec_plain`` / ``csr_matmat_plain`` — the ``index_add_``
-    products on any device: the plain versions behind the merge and
-    row-split kernels and KR.
+    products on any device (``kernels/csr_reference.py``): the plain
+    versions behind the merge and row-split kernels and KR.
 """
 
 from __future__ import annotations
@@ -24,17 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpusparse_torch.kernels.csr_reference import csr_reference_kernel
-
-
-def expand_row_ids(row_offsets: torch.Tensor, num_rows: int,
-                   nnz: int) -> torch.Tensor:
-    """Per-nonzero row ids (nnz,) int64 from CSR row offsets (``nnz``
-    given, so a CUDA expansion needs no host sync)."""
-    lengths = (row_offsets[1:] - row_offsets[:-1]).to(torch.int64)
-    return torch.repeat_interleave(
-        torch.arange(num_rows, device=row_offsets.device), lengths,
-        output_size=nnz)
+from tpusparse_torch.kernels.csr_reference import (  # noqa: F401
+    csr_matmat_plain,
+    csr_matvec_plain,
+    csr_reference_kernel,
+    expand_row_ids,
+)
 
 
 def csr_matvec(num_rows: int, row_offsets, col_indices, values,
@@ -56,47 +50,6 @@ def csr_matmat(num_rows: int, row_offsets, col_indices, values,
         return csr_reference_kernel(num_rows, row_offsets, col_indices,
                                     values, X)
     return csr_matmat_plain(num_rows, row_offsets, col_indices, values, X)
-
-
-def csr_matvec_plain(num_rows: int, row_offsets, col_indices, values,
-                     x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for CSR tensors, in plain torch, in the dtype of
-    ``values``."""
-    rows = expand_row_ids(row_offsets, num_rows, col_indices.shape[0])
-    prod = values * x.to(values.dtype)[col_indices.to(torch.int64)]
-    y = torch.zeros(num_rows, dtype=values.dtype, device=values.device)
-    return y.index_add_(0, rows, prod)
-
-
-def csr_matmat_plain(num_rows: int, row_offsets, col_indices, values,
-                     X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X for CSR tensors and X (num_cols, L), in plain torch, in
-    the dtype of ``values``: gather the rows of X, scale, ``index_add_``
-    per row."""
-    rows = expand_row_ids(row_offsets, num_rows, col_indices.shape[0])
-    prod = values[:, None] * X.to(values.dtype)[col_indices.to(torch.int64)]
-    Y = torch.zeros((num_rows, X.shape[1]), dtype=values.dtype,
-                    device=values.device)
-    return Y.index_add_(0, rows, prod)
-
-
-def spmv_reference(csr, x, alpha=1.0, beta=0.0, y=None):
-    """y = alpha * A @ x + beta * y for a CsrMatrix of torch tensors."""
-    y_new = csr_matvec(csr.num_rows, csr.row_offsets, csr.col_indices,
-                       csr.values, x)
-    if beta == 0.0 or y is None:
-        return alpha * y_new
-    return alpha * y_new + beta * y
-
-
-def spmm_reference(csr, X, alpha=1.0, beta=0.0, Y=None):
-    """Y = alpha * A @ X + beta * Y, X (num_cols, L), for a CsrMatrix of
-    torch tensors."""
-    Y_new = csr_matmat(csr.num_rows, csr.row_offsets, csr.col_indices,
-                       csr.values, X)
-    if beta == 0.0 or Y is None:
-        return alpha * Y_new
-    return alpha * Y_new + beta * Y
 
 
 def spmv_numpy(csr, x, alpha=1.0, beta=0.0, y=None) -> np.ndarray:

@@ -4,7 +4,13 @@
 ``plan_matrix`` builds a device operand for a host CsrMatrix, in
 float32 or float64; ``spmv`` (x of shape (num_cols,)) and ``spmm`` (X of
 shape (num_cols, L)) dispatch on the operand type and compute in the
-plan's type (x is cast to it). The strategies the port runs, at any
+plan's type (x is cast to it). This module makes every routing decision
+of a product: one table (``_OPERANDS``) gives each operand type its
+label, its value type and its unscaled vector and block products, a
+hybrid or reordered plan composed from its parts' entries; ``spmv`` and
+``spmm`` apply alpha and beta once (``_scaled``); ``block_product``
+gives the blocked solvers their product and state layout. The kernel
+modules below choose nothing. The strategies the port runs, at any
 L >= 1 and in either type (the float64 kernels K1d-K5d are the IEEE
 float64 twins of K1-K5):
 
@@ -64,6 +70,7 @@ from __future__ import annotations
 
 import enum
 import warnings
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -81,35 +88,34 @@ from tpusparse_torch.formats.dia import (
     select_diagonals,
     to_device_dia,
 )
-from tpusparse_torch.kernels.bsr import bsr_spmm, bsr_spmv
+from tpusparse_torch.kernels.bsr import bsr_matmat
 from tpusparse_torch.kernels.dia_nmajor import (
+    LANE_COUNTS,
     DiaNMajorDevice,
-    spmm_dia_nmajor,
-    spmv_dia_nmajor,
+    nmajor_matmat,
     to_device_dia_nmajor,
 )
 from tpusparse_torch.kernels.dia_stream import (
     DiaStreamDevice,
     _maskable,
-    spmm_dia_stream,
-    spmv_dia_stream,
+    planes_value_dtype,
+    spmm_dia_planes_t,
+    spmm_dia_stream_t,
     to_device_dia_stream,
 )
 from tpusparse_torch.kernels.ell_spmm import (
     RowSplitDevice,
-    spmm_ell,
-    spmv_ell,
+    row_split_matmat,
     to_device_row_split,
 )
 from tpusparse_torch.kernels.merge_spmv import (
     MergeDevice,
-    spmv_merge,
+    merge_matvec,
     to_device_merge,
 )
-from tpusparse_torch.kernels.spmm_merge import spmm_merge
-from tpusparse_torch.ops.dia import spmm_dia, spmv_dia
-from tpusparse_torch.ops.hybrid import HybridPlan, spmm_hybrid, spmv_hybrid
-from tpusparse_torch.ops.reference import spmm_reference, spmv_reference
+from tpusparse_torch.kernels.spmm_merge import merge_matmat
+from tpusparse_torch.ops.hybrid import HybridPlan
+from tpusparse_torch.ops.reference import csr_matmat, csr_matvec
 from tpusparse_torch.ops.reorder import ReorderedPlan
 from tpusparse_torch.utils import trace
 
@@ -294,51 +300,169 @@ def plan_dia_bf16(csr: CsrMatrix, L: int = 1, device="cuda") -> HybridPlan:
     return HybridPlan(dev, rest_plan, csr.nnz)
 
 
+def kernel_layout(T: torch.Tensor) -> torch.Tensor:
+    """``T`` made contiguous, the layout a DIA kernel reads, at the
+    public ``spmm`` boundary. A copy opens a ``dia.layout`` span; the
+    ``spmm.layout_bytes`` counter gets the bytes it reads and writes,
+    or 0 where ``T`` is contiguous already (a 1-D X's X.T, an (L, n)
+    block's transposed view, or a row-major (n, L) block for K7)."""
+    if T.is_contiguous():
+        trace.count("spmm.layout_bytes", 0)
+        return T
+    with trace.span("dia.layout"):
+        T = T.contiguous()
+    trace.count("spmm.layout_bytes", 2 * T.numel() * T.element_size())
+    return T
+
+
+def _masked_matvec(D: DiaStreamDevice, x):
+    return spmm_dia_stream_t(D, x.to(D.vals.dtype).reshape(1, -1))[0]
+
+
+def _masked_matmat(D: DiaStreamDevice, X):
+    """A @ X, X cast to the band's type. The kernel follows X's layout: a
+    row-major float32 block of 2 to 128 columns runs K7 on X as it is,
+    over the same band, and Y comes back row-major (counter
+    ``spmm.nmajor``); any other X runs K1 or K1d on X.T, which is
+    contiguous already for L = 1 or an (L, n) block's transposed view,
+    and Y comes back as a transposed view of the (L, n) result. K7
+    equals K1 on X.T bit for bit, so Y's values do not depend on the
+    route."""
+    X = X.to(D.vals.dtype)
+    if (X.dtype == torch.float32 and X.is_contiguous()
+            and 2 <= X.shape[1] <= LANE_COUNTS[-1]):
+        trace.count("spmm.nmajor")
+        return nmajor_matmat(D, kernel_layout(X))
+    return spmm_dia_stream_t(D, kernel_layout(X.T)).T
+
+
+def _planes_matvec(D: DiaDevice, x):
+    XT = x.reshape(1, -1).to(planes_value_dtype(D)).contiguous()
+    return spmm_dia_planes_t(D, XT)[0]
+
+
+def _planes_matmat(D: DiaDevice, X):
+    """K5 or K5d on X.T, in the planes' compute type."""
+    return spmm_dia_planes_t(
+        D, kernel_layout(X.to(planes_value_dtype(D)).T)).T
+
+
+def _nmajor_matvec(N: DiaNMajorDevice, x):
+    return nmajor_matmat(
+        N.band, x.to(torch.float32).reshape(-1, 1).contiguous())[:, 0]
+
+
+def _nmajor_matmat(N: DiaNMajorDevice, X):
+    """K7 on X cast to float32, at most the plan's ``L`` columns."""
+    if X.shape[1] > N.L:
+        raise ValueError(
+            f"n-major plan built for L <= {N.L} RHS columns, got "
+            f"{X.shape[1]}; rebuild with plan_matrix(..., "
+            f"strategy='nmajor', L={X.shape[1]})")
+    return nmajor_matmat(N.band, kernel_layout(X.to(torch.float32)))
+
+
+def _one_column(matmat):
+    """The vector product of a block product: x as one column."""
+    return lambda A, x: matmat(A, x.reshape(-1, 1))[:, 0]
+
+
+def _row_split_matmat(A: RowSplitDevice, X):
+    return row_split_matmat(A, X.to(A.values.dtype).contiguous())
+
+
+def _bsr_matmat(A: BcsrMatrix, X):
+    return bsr_matmat(A, X.to(A.blocks.dtype).contiguous())
+
+
+def _hybrid(which: str):
+    """The product ``which`` of a HybridPlan: its DIA part's, plus its
+    remainder's where it has one."""
+    def product(H: HybridPlan, X):
+        Y = getattr(_operand(H.dia), which)(H.dia, X)
+        if H.rest is None:
+            return Y
+        return Y + getattr(_operand(H.rest), which)(H.rest, X)
+    return product
+
+
+def _reordered(which: str):
+    """The product ``which`` of a ReorderedPlan: X permuted by K6, the
+    inner plan's product, permuted back by K6."""
+    def product(R: ReorderedPlan, X):
+        Xp = R.apply_perm(X.to(_vector_dtype(R)))
+        return R.apply_inv(getattr(_operand(R.inner), which)(R.inner, Xp))
+    return product
+
+
+class _Operand(NamedTuple):
+    """What the dispatch layer knows of one operand type."""
+
+    kind: Callable     # A -> plan_kind's label (the JAX package's)
+    dtype: Callable    # A -> the stored value type
+    matvec: Callable   # (A, x (num_cols,)) -> A @ x, unscaled
+    matmat: Callable   # (A, X (num_cols, L)) -> A @ X, unscaled
+
+
+def _values(A) -> torch.dtype:
+    return A.values.dtype
+
+
+_OPERANDS = {
+    DiaStreamDevice: _Operand(
+        lambda D: "dia", lambda D: D.vals.dtype, _masked_matvec,
+        _masked_matmat),
+    DiaDevice: _Operand(
+        lambda D: "dia_bf16" if D.data.dtype == torch.bfloat16 else "dia",
+        lambda D: D.data.dtype, _planes_matvec, _planes_matmat),
+    DiaNMajorDevice: _Operand(
+        lambda N: "dia_nmajor", lambda N: N.band.vals.dtype, _nmajor_matvec,
+        _nmajor_matmat),
+    MergeDevice: _Operand(
+        lambda A: "merge", _values,
+        lambda A, x: merge_matvec(A, x.to(A.values.dtype)),
+        lambda A, X: merge_matmat(A, X.to(A.values.dtype).contiguous())),
+    RowSplitDevice: _Operand(
+        lambda A: "row_split", _values, _one_column(_row_split_matmat),
+        _row_split_matmat),
+    BcsrMatrix: _Operand(
+        lambda A: "bsr", lambda A: A.blocks.dtype, _one_column(_bsr_matmat),
+        _bsr_matmat),
+    CsrMatrix: _Operand(
+        lambda A: "reference", _values,
+        lambda A, x: csr_matvec(A.num_rows, A.row_offsets, A.col_indices,
+                                A.values, x),
+        lambda A, X: csr_matmat(A.num_rows, A.row_offsets, A.col_indices,
+                                A.values, X)),
+    HybridPlan: _Operand(
+        lambda H: (plan_kind(H.dia) if H.rest is None
+                   else "hybrid_" + plan_kind(H.dia)),
+        lambda H: plan_dtype(H.dia), _hybrid("matvec"), _hybrid("matmat")),
+    ReorderedPlan: _Operand(
+        lambda R: f"{R.order}+{plan_kind(R.inner)}",
+        lambda R: plan_dtype(R.inner), _reordered("matvec"),
+        _reordered("matmat")),
+}
+
+
+def _operand(A) -> _Operand:
+    op = _OPERANDS.get(type(A))
+    if op is None:
+        raise TypeError(f"not a plan: {type(A).__name__}")
+    return op
+
+
 def plan_dtype(A) -> torch.dtype:
     """The stored value type of a plan: float32 or float64, or bf16 for
     bf16 value planes (a hybrid takes it from its DIA part, whose
     remainder then holds float32)."""
-    plan_kind(A)
-    if isinstance(A, ReorderedPlan):
-        A = A.inner
-    if isinstance(A, HybridPlan):
-        A = A.dia
-    if isinstance(A, DiaNMajorDevice):
-        A = A.band
-    if isinstance(A, DiaStreamDevice):
-        return A.vals.dtype
-    if isinstance(A, DiaDevice):
-        return A.data.dtype
-    if isinstance(A, BcsrMatrix):
-        return A.blocks.dtype
-    return A.values.dtype
-
-
-def _bf16_planes(A) -> bool:
-    return isinstance(A, DiaDevice) and A.data.dtype == torch.bfloat16
+    return _operand(A).dtype(A)
 
 
 def plan_kind(A) -> str:
     """Short name of a plan's kernel family (the JAX package's labels);
     a reordered plan is ``order + "+" + `` its inner plan's."""
-    if isinstance(A, ReorderedPlan):
-        return f"{A.order}+{plan_kind(A.inner)}"
-    if isinstance(A, HybridPlan):
-        tag = plan_kind(A.dia)
-        return tag if A.rest is None else "hybrid_" + tag
-    if isinstance(A, DiaNMajorDevice):
-        return "dia_nmajor"
-    if isinstance(A, (DiaStreamDevice, DiaDevice)):
-        return "dia_bf16" if _bf16_planes(A) else "dia"
-    if isinstance(A, BcsrMatrix):
-        return "bsr"
-    if isinstance(A, MergeDevice):
-        return "merge"
-    if isinstance(A, RowSplitDevice):
-        return "row_split"
-    if isinstance(A, CsrMatrix):
-        return "reference"
-    raise TypeError(f"not a plan: {type(A).__name__}")
+    return _operand(A).kind(A)
 
 
 def plan_semantics(A) -> str:
@@ -367,6 +491,14 @@ def device_operand(A, like: torch.Tensor):
     return A
 
 
+def _scaled(Y_new, alpha, beta, Y):
+    """alpha * Y_new + beta * Y, the epilogue of every product: Y_new as
+    it is at alpha = 1 when beta = 0 or there is no Y."""
+    if beta == 0.0 or Y is None:
+        return alpha * Y_new if alpha != 1.0 else Y_new
+    return alpha * Y_new + beta * Y
+
+
 def spmv(A, x, alpha=1.0, beta=0.0, y=None, strategy="auto"):
     """y = alpha * A @ x + beta * y for any plan of ``plan_matrix``, or
     a host ``CsrMatrix`` (``device_operand``). ``strategy`` is the JAX
@@ -375,27 +507,7 @@ def spmv(A, x, alpha=1.0, beta=0.0, y=None, strategy="auto"):
     with trace.span("spmv"):
         SpmvStrategy.parse(strategy)
         A = device_operand(A, x)
-        if isinstance(A, ReorderedPlan):
-            xp = A.apply_perm(x.to(_vector_dtype(A)))
-            y_new = A.apply_inv(spmv(A.inner, xp, alpha=alpha))
-            return y_new if beta == 0.0 or y is None else y_new + beta * y
-        if isinstance(A, HybridPlan):
-            return spmv_hybrid(A, x, alpha=alpha, beta=beta, y=y)
-        if isinstance(A, DiaNMajorDevice):
-            return spmv_dia_nmajor(A, x, alpha=alpha, beta=beta, y=y)
-        if isinstance(A, DiaStreamDevice):
-            return spmv_dia_stream(A, x, alpha=alpha, beta=beta, y=y)
-        if isinstance(A, DiaDevice):
-            return spmv_dia(A, x, alpha=alpha, beta=beta, y=y)
-        if isinstance(A, MergeDevice):
-            return spmv_merge(A, x, alpha=alpha, beta=beta, y=y)
-        if isinstance(A, RowSplitDevice):
-            return spmv_ell(A, x, alpha=alpha, beta=beta, y=y)
-        if isinstance(A, BcsrMatrix):
-            return bsr_spmv(A, x, alpha=alpha, beta=beta, y=y)
-        if isinstance(A, CsrMatrix):
-            return spmv_reference(A, x, alpha=alpha, beta=beta, y=y)
-        raise TypeError(f"not a plan: {type(A).__name__}")
+        return _scaled(_operand(A).matvec(A, x), alpha, beta, y)
 
 
 def spmm(A, X, alpha=1.0, beta=0.0, Y=None, strategy="auto"):
@@ -405,28 +517,40 @@ def spmm(A, X, alpha=1.0, beta=0.0, Y=None, strategy="auto"):
     with trace.span("spmm"):
         SpmvStrategy.parse(strategy)
         A = device_operand(A, X)
+        matmat = _operand(A).matmat
         if X.dim() == 1:
-            Y2 = None if Y is None else Y.reshape(-1, 1)
-            return spmm(A, X.reshape(-1, 1), alpha=alpha, beta=beta,
-                        Y=Y2)[:, 0]
-        if isinstance(A, ReorderedPlan):
-            Xp = A.apply_perm(X.to(_vector_dtype(A)))
-            Y_new = A.apply_inv(spmm(A.inner, Xp, alpha=alpha))
-            return Y_new if beta == 0.0 or Y is None else Y_new + beta * Y
-        if isinstance(A, HybridPlan):
-            return spmm_hybrid(A, X, alpha=alpha, beta=beta, Y=Y)
-        if isinstance(A, DiaNMajorDevice):
-            return spmm_dia_nmajor(A, X, alpha=alpha, beta=beta, Y=Y)
-        if isinstance(A, DiaStreamDevice):
-            return spmm_dia_stream(A, X, alpha=alpha, beta=beta, Y=Y)
-        if isinstance(A, DiaDevice):
-            return spmm_dia(A, X, alpha=alpha, beta=beta, Y=Y)
-        if isinstance(A, MergeDevice):
-            return spmm_merge(A, X, alpha=alpha, beta=beta, Y=Y)
-        if isinstance(A, RowSplitDevice):
-            return spmm_ell(A, X, alpha=alpha, beta=beta, Y=Y)
-        if isinstance(A, BcsrMatrix):
-            return bsr_spmm(A, X, alpha=alpha, beta=beta, Y=Y)
-        if isinstance(A, CsrMatrix):
-            return spmm_reference(A, X, alpha=alpha, beta=beta, Y=Y)
-        raise TypeError(f"not a plan: {type(A).__name__}")
+            Y_new = matmat(A, X.reshape(-1, 1))[:, 0]
+        else:
+            Y_new = matmat(A, X)
+        return _scaled(Y_new, alpha, beta, Y)
+
+
+def dia_t_product(A):
+    """The kernel call on (L, num_cols) -> (L, num_rows) blocks of a plan
+    that is all diagonal runs (a bare DIA operand, or a HybridPlan with
+    no remainder): K1 or K1d on a masked band, K5 or K5d on value
+    planes; None for any other plan, an n-major one included."""
+    D = A.dia if isinstance(A, HybridPlan) and A.rest is None else A
+    if isinstance(D, DiaStreamDevice):
+        return lambda P: spmm_dia_stream_t(D, P)
+    if isinstance(D, DiaDevice):
+        return lambda P: spmm_dia_planes_t(D, P)
+    return None
+
+
+def block_product(A, B: torch.Tensor):
+    """``(matmat, lane_dim)``: the block product a blocked solver runs on
+    plan ``A`` for B (n, L), and the dimension of its state that holds
+    the lanes. A plan that is all diagonal runs, masked or value planes,
+    runs K1, K1d, K5 or K5d on (L, n) state (0), the kernels' own
+    layout, with no transposes (``dia_t_product``); a pure n-major plan
+    with a float32 B of at most its ``L`` columns runs K7 on (n, L) state
+    (1); every other plan runs ``spmm`` on (n, L) state (1)."""
+    mm_t = dia_t_product(A)
+    if mm_t is not None:
+        return mm_t, 0
+    D = A.dia if isinstance(A, HybridPlan) and A.rest is None else A
+    if (isinstance(D, DiaNMajorDevice) and B.dtype == torch.float32
+            and B.shape[1] <= D.L):
+        return (lambda P: nmajor_matmat(D.band, P)), 1
+    return (lambda P: spmm(A, P)), 1

@@ -27,15 +27,17 @@ own CG, with ``_cg_solve_multi_impl``'s semantics:
     converged lane freezes;
   * the history holds the largest ``sqrt(r.r) / ||b||`` over the lanes.
 
-A plan that is all diagonal runs (no remainder), masked (K1, K1d) or
-value planes of any type (K5, K5d), keeps the whole state in (L, n),
-the kernels' own layout, with no transposes per iteration (the JAX
-package's ``_pure_dia_of`` / ``_dia_t_callable``). A pure n-major plan
-(``strategy='nmajor'``) with float32 B of at most its ``L`` columns keeps
-the state in (n, L), K7's own layout, and calls K7 directly (the
-function of the JAX package's ``_cg_solve_multi_interleaved``; only the
-dots' reduction order differs, and there are no pad lanes). Every other
-plan keeps (n, L) and calls ``spmm``.
+The dispatch layer gives the blocked loop its product and the layout of
+its state (``ops.spmv.block_product``). A plan that is all diagonal runs
+(no remainder), masked (K1, K1d) or value planes of any type (K5, K5d),
+keeps the whole state in (L, n), the kernels' own layout, with no
+transposes per iteration (the JAX package's ``_pure_dia_of`` /
+``_dia_t_callable``). A pure n-major plan (``strategy='nmajor'``) with
+float32 B of at most its ``L`` columns keeps the state in (n, L), K7's
+own layout, and calls K7 directly (the function of the JAX package's
+``_cg_solve_multi_interleaved``; only the dots' reduction order differs,
+and there are no pad lanes). Every other plan keeps (n, L) and calls
+``spmm``.
 
 On a ``ReorderedPlan`` both solvers run in the permuted space, as the
 JAX package's do: b (B) is permuted once on the way in and x (X) once on
@@ -81,27 +83,23 @@ from typing import Callable
 
 import torch
 
-from tpusparse_torch.formats.dia import DiaDevice
-from tpusparse_torch.kernels.dia_nmajor import DiaNMajorDevice, nmajor_matmat
-from tpusparse_torch.kernels.dia_stream import (
-    DiaStreamDevice,
-    spmm_dia_planes_t,
-    spmm_dia_stream_t,
-)
 from tpusparse_torch.ops.blas import (
     axpy_multiple,
+    axpy_multiple_t,
     axpy_single,
     dot_multiple,
+    dot_multiple_t,
     dot_single,
     update_p_multiple,
+    update_p_multiple_t,
     update_p_single,
 )
-from tpusparse_torch.ops.hybrid import HybridPlan
 from tpusparse_torch.ops.reorder import ReorderedPlan
 from tpusparse_torch.ops.spmv import (
     SpmvStrategy,
+    block_product,
     device_operand,
-    spmm,
+    dia_t_product,
     spmv,
 )
 from tpusparse_torch.utils import trace
@@ -247,71 +245,45 @@ def cg_solve_multi(A, B: torch.Tensor, max_iters: int = 10000,
             res = cg_solve_multi(A.inner, A.apply_perm(B), max_iters,
                                  tolerance, record_history=record_history)
             return dataclasses.replace(res, x=A.apply_inv(res.x))
+        lane_dim = 1
         if matmat is None:
-            matmat = _nmajor_callable(A, B)
-        if matmat is not None:
-            X, i, converged, rel, hist = _cg_multi_loop(
-                matmat, B, 1, max_iters, tolerance, record_history)
-            return CgResult(x=X, iterations=i, converged=converged,
-                            residual=rel, history=hist)
-        mm_t = _dia_t_callable(A)
-        if mm_t is not None:
-            XT, i, converged, rel, hist = _cg_multi_loop(
-                mm_t, B.T.contiguous(), 0, max_iters, tolerance,
-                record_history)
-            return CgResult(x=XT.T.contiguous(), iterations=i,
-                            converged=converged, residual=rel, history=hist)
+            matmat, lane_dim = _block_product(A, B)
         X, i, converged, rel, hist = _cg_multi_loop(
-            lambda P: spmm(A, P), B, 1, max_iters, tolerance, record_history)
+            matmat, B, lane_dim, max_iters, tolerance, record_history)
         return CgResult(x=X, iterations=i, converged=converged, residual=rel,
                         history=hist)
 
 
-def _dia_t_callable(A):
-    """The (L, num_cols) -> (L, num_rows) kernel call of a plan that is
-    all diagonal runs (a bare DIA operand, or a HybridPlan with no
-    remainder): K1 on a masked operand, K5 on value planes; None for
-    any other plan."""
-    if isinstance(A, HybridPlan) and A.rest is None:
-        A = A.dia
-    if isinstance(A, DiaStreamDevice):
-        return lambda P: spmm_dia_stream_t(A, P)
-    if isinstance(A, DiaDevice):
-        return lambda P: spmm_dia_planes_t(A, P)
-    return None
+# The (L, n) product of a plan that is all diagonal runs, or None
+# (``ops.spmv.dia_t_product``), looked up by the blocked solvers under
+# this name: benchmark/tests/test_bench_control.py replaces it to fault
+# a solve's state.
+_dia_t_callable = dia_t_product
 
 
-def _nmajor_callable(A, B: torch.Tensor):
-    """K7 on (n, L) blocks for a plan that is all n-major diagonal runs,
-    when B is float32 with at most the plan's ``L`` columns (the JAX
-    package's ``_interleaved_plan_of`` gate); None otherwise."""
-    if isinstance(A, HybridPlan) and A.rest is None:
-        A = A.dia
-    if (isinstance(A, DiaNMajorDevice) and B.dtype == torch.float32
-            and B.shape[1] <= A.L):
-        return lambda P: nmajor_matmat(A, P)
-    return None
+def _block_product(A, B):
+    """``ops.spmv.block_product``'s product and state layout, its (L, n)
+    product taken through ``_dia_t_callable``."""
+    mm_t = _dia_t_callable(A)
+    return (mm_t, 0) if mm_t is not None else block_product(A, B)
 
 
 def _cg_multi_loop(matmat, B, lane_dim, max_iters, tolerance,
                    record_history, precond=None):
-    """The blocked (P)CG loop on state laid out with the lanes on
-    ``lane_dim``: 1 for the (n, L) layout (BLAS-1 of ``ops/blas.py``), 0
-    for (L, n), where the dots sum over dim 1 and per-lane scalars
-    broadcast as (L, 1). ``precond(R) -> Z`` (in R's layout, cast back
-    to B's type) makes it PCG with ``rho = r.z``; without one, Z = R and
-    the loop is CG."""
+    """The blocked (P)CG loop on B (n, L), its state laid out with the
+    lanes on ``lane_dim``: 1 for the (n, L) layout, 0 for (L, n) (B
+    transposed once on the way in and X once on the way out), each with
+    its BLAS-1 of ``ops/blas.py``. ``matmat`` and ``precond(R) -> Z`` (in
+    R's layout, cast back to B's type) take the state's layout;
+    ``precond`` makes it PCG with ``rho = r.z``; without one, Z = R and
+    the loop is CG. Returns (X (n, L), iterations, converged, residuals,
+    history)."""
     if lane_dim == 1:
         dot, axpy, update = dot_multiple, axpy_multiple, update_p_multiple
     else:
-        def dot(a, b):
-            return torch.sum(a * b, dim=1)
-
-        def axpy(y, alpha, x):
-            return y + alpha[:, None] * x
-
-        def update(r, beta, p):
-            return r + beta[:, None] * p
+        dot, axpy = dot_multiple_t, axpy_multiple_t
+        update = update_p_multiple_t
+        B = B.T.contiguous()
 
     def prec(R):
         return R if precond is None else precond(R).to(B.dtype)
@@ -352,4 +324,6 @@ def _cg_multi_loop(matmat, B, lane_dim, max_iters, tolerance,
             P = update(Z, beta, P)
             rho_old = rho_new
         i += 1
+    if lane_dim == 0:
+        X = X.T.contiguous()
     return X, i, converged, torch.sqrt(rs) / b_norms, hist

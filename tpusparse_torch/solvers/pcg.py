@@ -47,13 +47,8 @@ from typing import Any, Callable
 import torch
 
 from tpusparse_torch.ops.reorder import ReorderedPlan
-from tpusparse_torch.ops.spmv import SpmvStrategy, spmm
-from tpusparse_torch.solvers.cg import (
-    CgResult,
-    _cg_multi_loop,
-    _dia_t_callable,
-    _nmajor_callable,
-)
+from tpusparse_torch.ops.spmv import SpmvStrategy
+from tpusparse_torch.solvers.cg import CgResult, _block_product, _cg_multi_loop
 
 
 def _same_order(perm, plan_perm: torch.Tensor) -> bool:
@@ -99,21 +94,15 @@ def pcg_solve_multi(A, B: torch.Tensor, apply_precond: Callable,
         raise ValueError(
             "the preconditioner declares a plan order (perm), but this "
             "solve does not run in a reordered plan's permuted space")
+    lane_dim, prec = 1, apply_precond
     if matmat is None:
-        matmat = _nmajor_callable(A, B)
-    mm_t = _dia_t_callable(A) if matmat is None else None
-    if mm_t is not None:
-        def apply_t(RT):
+        matmat, lane_dim = _block_product(A, B)
+    if lane_dim == 0:
+        def prec(RT):
             return apply_precond(RT.T.contiguous()).to(B.dtype).T.contiguous()
 
-        XT, i, converged, rel, hist = _cg_multi_loop(
-            mm_t, B.T.contiguous(), 0, max_iters, tolerance, record_history,
-            apply_t)
-        return CgResult(x=XT.T.contiguous(), iterations=i,
-                        converged=converged, residual=rel, history=hist)
-    mm = matmat if matmat is not None else (lambda V: spmm(A, V))
     X, i, converged, rel, hist = _cg_multi_loop(
-        mm, B, 1, max_iters, tolerance, record_history, apply_precond)
+        matmat, B, lane_dim, max_iters, tolerance, record_history, prec)
     return CgResult(x=X, iterations=i, converged=converged, residual=rel,
                     history=hist)
 
