@@ -5,9 +5,13 @@ Cells, at the shapes where the main path launches them, each on the
 (L, n) layout of ``spmm_dia_stream_t``:
   * lap3d-160 at L = 1 and L = 16, float32 (K1) and float64 (K1d);
   * lap2d-2049 (``make_laplacian_grid2d(2049)``: 4,198,401 rows, odd n,
-    offsets +-1 and +-2049) at L = 16, float32 (K1).
+    offsets +-1 and +-2049) at L = 16, float32 (K1);
+  * HPCG's 27-point band (nine runs of three consecutive offsets) at
+    208^3 (8,998,912 rows, the benchmark's ``hpcg-27pt-208``) at L = 1
+    and L = 16, float64 (K1d), and at 128^3 at L = 16, float32 (K1).
 Per cell: per call and graph-replayed device milliseconds of the kernel;
-``torch.sparse`` CSR of the same matrix in the same type on X (n, L);
+``torch.sparse`` CSR of the same matrix in the same type on X (n, L)
+(not at 208^3, whose 240M nonzeros would cost each run minutes);
 the bound (``bench/models.bound_ms`` on ``dia_masked_bytes``); a hash of
 Y's bytes and whether Y equals the plain version bit for bit; and a
 ``torch.profiler`` split of the call by kernel, as launches and device
@@ -59,7 +63,12 @@ CELLS = (("lap3d-160", "float32", 1, "K1"),
          ("lap3d-160", "float32", 16, "K1"),
          ("lap3d-160", "float64", 1, "K1d"),
          ("lap3d-160", "float64", 16, "K1d"),
-         ("lap2d-2049", "float32", 16, "K1"))
+         ("lap2d-2049", "float32", 16, "K1"),
+         ("hpcg27-208", "float64", 1, "K1d"),
+         ("hpcg27-208", "float64", 16, "K1d"),
+         ("hpcg27-128", "float32", 16, "K1"))
+# matrices timed without the torch.sparse yardstick
+NO_LIBRARY = ("hpcg27-208",)
 
 
 def _cell_key(cell) -> str:
@@ -67,13 +76,43 @@ def _cell_key(cell) -> str:
     return f"{name} L={L} {kernel}"
 
 
+def hpcg27_band(width: int) -> tuple:
+    """(offsets, float64 values, mask words) of HPCG's 27-point stencil
+    on a width^3 grid as AUTO plans it, built directly: the 27 offsets
+    (dz width + dy) width + dx ascending, 26 on offset 0 and -1 on the
+    others, bit k of a row's word set where neighbour k lies in the
+    grid."""
+    n = width ** 3
+    i = np.arange(n, dtype=np.int64)
+    coords = (i % width, i // width % width, i // (width * width))
+    planes = sorted(((dz * width + dy) * width + dx, (dx, dy, dz))
+                    for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                    for dx in (-1, 0, 1))
+    words = np.zeros(n, np.uint32)
+    for k, (_, step) in enumerate(planes):
+        inside = np.ones(n, bool)
+        for c, d in zip(coords, step):
+            inside &= (c + d >= 0) & (c + d < width)
+        words |= inside.astype(np.uint32) << np.uint32(k)
+    offsets = np.array([off for off, _ in planes])
+    return offsets, np.where(offsets == 0, 26.0, -1.0), words
+
+
 def make_fixtures(path: Path) -> None:
     """The masked operands (mask words, offsets, float64 coefficients)
-    of the two matrices, saved as numpy arrays."""
+    of the matrices, saved as numpy arrays."""
     from tpusparse_torch import plan_matrix
     from tpusparse_torch.io import generators as gen
 
     arrays = {}
+    for width in (208, 128):
+        t0 = time.perf_counter()
+        offsets, vals, words = hpcg27_band(width)
+        name = f"hpcg27-{width}"
+        arrays.update({f"{name}/mask": words.view(np.int32),
+                       f"{name}/offsets": offsets, f"{name}/vals": vals})
+        print(f"fixture {name}: {words.shape[0]} rows, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, make in (("lap3d-160", lambda: gen.make_laplacian_grid3d(160)),
                        ("lap2d-2049",
                         lambda: gen.make_laplacian_grid2d(2049))):
@@ -144,17 +183,21 @@ def run_tree(fixtures: Path, ptxas: bool) -> dict:
             "sha256": hashlib.sha256(
                 Y.cpu().numpy().tobytes()).hexdigest()[:16]}
         del Y
-        lib = _library_csr(D, dtype)
-        X = XT.T.contiguous()
-        for key, fn in (("kernel", lambda: dia_stream.spmm_dia_stream_t(D,
-                                                                        XT)),
-                        ("torch.sparse", lambda: lib @ X)):
+        fns = {"kernel": lambda: dia_stream.spmm_dia_stream_t(D, XT)}
+        lib = X = None
+        if name not in NO_LIBRARY:
+            lib = _library_csr(D, dtype)
+            X = XT.T.contiguous()
+            fns["torch.sparse"] = lambda: lib @ X
+        res["torch.sparse"] = None
+        for key, fn in fns.items():
             res[key] = {"ms": cuda_time_ms(fn), "device_ms": graph_time_ms(fn)}
         try:
             res["split"] = _split(lambda: dia_stream.spmm_dia_stream_t(D, XT))
         except RuntimeError as e:  # a card whose profiler cannot trace
             res["split"] = {"error": str(e)}
-        nnz = int(lib.values().numel())
+        nnz = sum(int(((D.mask >> k) & 1).sum())
+                  for k in range(len(D.offsets)))
         res["bound_ms"], res["bound_by"] = bound_ms(
             spmv_flops(nnz, L), dia_masked_bytes(n, L, dtype.itemsize),
             fp64=dtype == torch.float64)
@@ -222,8 +265,9 @@ def summarize(trees: dict, order: list, runs: list, built: dict) -> dict:
             row[name] = {
                 "device_ms": dev,
                 "ms": [m["kernel"]["ms"] for m in mine],
-                "torch.sparse_device_ms": [m["torch.sparse"]["device_ms"]
-                                           for m in mine],
+                "torch.sparse_device_ms": [
+                    m["torch.sparse"] and m["torch.sparse"]["device_ms"]
+                    for m in mine],
                 "bound_ms": mine[0]["bound_ms"],
                 "median": statistics.median(dev),
                 "disagreement": (max(dev) - min(dev)) / min(dev),

@@ -1,6 +1,7 @@
 """Write the variant trees of K1's A/B (``scripts/torch_k1_ab.py``).
 
-Each variant is a copy of this tree's ``tpusparse_torch`` package with
+Each variant is a copy of a tree's ``tpusparse_torch`` package (this
+tree's, or the one under ``--base``) with
 ``csrc/dia_masked.cu`` (and, where the geometry or the launch changes,
 ``kernels/dia_stream.py`` and ``kernels/_build.py``) changed in one
 respect, so that a design step is timed against the kernel without it,
@@ -29,14 +30,40 @@ or a variant against the design:
            (``cp.async.bulk``) completing on an mbarrier per stage;
   a+b      variant a, then variant b.
 
+Those variants edit ``dia_masked.cu`` as it was before its runs of
+planes (``git archive a8eda11``), ``rows4`` and ``rows16`` any version.
+On the design that reads each run of consecutive offsets as one window
+of x in registers (``plane_runs``):
+
+  copy     a run's window loaded as the vectors of an aligned window
+           and shifted into place by copies (the first form of the
+           design: one instance per run length, not per shift);
+  cap3     runs cut at three planes instead of four;
+  occ      ``__launch_bounds__`` asks for five CTAs an SM (at most 51
+           registers a thread);
+  lb<D>_<F> ``__launch_bounds__`` asks for D CTAs an SM in float64 (K1d)
+           and F in float32 (K1): at most 65536 / (256 D) registers a
+           thread in float64 (``lb6_4``: 42, 64 in float32); ``lb<D>d``
+           is ``lb<D>_1``, which let K1 take 76;
+  shfl     (on ``copy``) a thread loads only its own R values of a run's
+           window, from the rounded-down address; the values past them
+           are the next lane's first R, taken with ``__shfl_down_sync``,
+           and the warp's last lane loads its own (threads past n stay to
+           take part in the shuffles and store nothing).
+
     python3 scripts/torch_k1_variants.py build/ab rows1+gridy scalar win
+    python3 scripts/torch_k1_variants.py build/ab copy cap3 copy+shfl
+    python3 scripts/torch_k1_variants.py --base build/ab/old \
+        --prefix old+ build/ab rows16
 
 Every variant computes the same products and sums in the same order, so
 its Y equals the design's bit for bit.
 """
 
+import argparse
+import re
+
 import shutil
-import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -773,6 +800,137 @@ BULK_LOOP = '''  __shared__ uint64_t bars[2];
     const T* cur = stages + (l & 1) * stage_elems;
 '''
 
+SHFL_WINDOW = r'''// The window by shuffles: a thread loads its own R values from the
+// rounded-down address a = c - s (whole vectors where they lie inside
+// [0, n), else guarded element loads); the s + W - R values past them are
+// the next lane's first ones (__shfl_down_sync), which the warp's last
+// lane loads itself.
+template <typename E, int R, int W>
+__device__ __forceinline__ void window_shfl(const E* __restrict__ p,
+                                            long long n, long long c,
+                                            E (&v)[W]) {
+  constexpr int V = vector_elems<E>();
+  constexpr int X = W - R + V - 1;
+  static_assert(R % V == 0 && X <= R, "window past the next lane's values");
+  const int s = misalign(p, c);
+  const long long a = c - s;
+  E own[R];
+  if (a >= 0 && a + R <= n) {
+    using VT = typename Vec<E>::type;
+    const VT* pv = reinterpret_cast<const VT*>(p + a);
+#pragma unroll
+    for (int q = 0; q < R / V; ++q) unpack(__ldg(pv + q), own + q * V);
+  } else {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      own[j] = (a + j >= 0 && a + j < n) ? __ldg(p + a + j) : E{};
+    }
+  }
+  E ext[X];
+  const int need = s + W - R;
+  const bool last = (threadIdx.x & 31) == 31;
+#pragma unroll
+  for (int q = 0; q < X; ++q) {
+    if (q < need) {
+      ext[q] = __shfl_down_sync(0xffffffffu, own[q], 1);
+      const long long j = a + R + q;
+      if (last) ext[q] = (j >= 0 && j < n) ? __ldg(p + j) : E{};
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    if (s == t) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        v[e] = e + t < R ? own[e + t] : ext[e + t - R];
+      }
+    }
+  }
+}
+
+'''
+RUN_START = "// Planes k .. k + M - 1, one run"
+KERNEL_START = "template <typename T>\n__global__ void __launch_bounds__(kThreads)"
+RUN_LOOP = """      const long long c = i0 + p.offsets[k];
+      add_run<T, R, kMaxRun>(misalign(xl, c), p.runs[r], xl, n, c, p, k, w,
+                             acc);
+"""
+COPY_RUN_LOOP = """      add_run_of<T, R, kMaxRun>(p.runs[r], xl, n, i0, p, k, w, acc);
+"""
+COPY_RUNS = r'''// v[e] = p[c + e] for e < W, 0 outside [0, n). From p + c - s (s = c's
+// misalignment): C = ceil(W / V) vectors, and one more where s + W passes
+// them, where C + 1 vectors from there lie inside [0, n); else guarded
+// element loads.
+template <typename E, int W>
+__device__ __forceinline__ void window_copy(const E* __restrict__ p,
+                                            long long n, long long c,
+                                            E (&v)[W]) {
+  constexpr int V = vector_elems<E>();
+  constexpr int C = (W + V - 1) / V;
+  const int s = misalign(p, c);
+  if (c - s >= 0 && c - s + (C + 1) * V <= n) {
+    using VT = typename Vec<E>::type;
+    const VT* pv = reinterpret_cast<const VT*>(p + (c - s));
+    E buf[(C + 1) * V];
+#pragma unroll
+    for (int q = 0; q < C; ++q) unpack(__ldg(pv + q), buf + q * V);
+    if (s + W > C * V) unpack(__ldg(pv + C), buf + C * V);
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      if (s == t) {
+#pragma unroll
+        for (int e = 0; e < W; ++e) v[e] = buf[e + t];
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    v[e] = (c + e >= 0 && c + e < n) ? __ldg(p + c + e) : E{};
+  }
+}
+
+// Planes k .. k + M - 1, one run, from one window of R + M - 1 values.
+template <typename T, int R, int M>
+__device__ __forceinline__ void add_run(const T* __restrict__ xl,
+                                        long long n, long long i0,
+                                        const DiaParams<T>& p, int k,
+                                        const uint32_t (&w)[R],
+                                        T (&acc)[R]) {
+  T x[R + M - 1];
+  window_values<T, R + M - 1>(xl, n, i0 + p.offsets[k], x);
+#pragma unroll
+  for (int q = 0; q < M; ++q) {
+    const T v = p.vals[k + q];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const T c = ((w[j] >> (k + q)) & 1u) ? v : T(0);
+      acc[j] = tps_rn::add(acc[j], tps_rn::mul(c, x[j + q]));
+    }
+  }
+}
+
+// add_run for a run of m planes, 1 <= m <= M.
+template <typename T, int R, int M>
+__device__ __forceinline__ void add_run_of(int m, const T* __restrict__ xl,
+                                           long long n, long long i0,
+                                           const DiaParams<T>& p, int k,
+                                           const uint32_t (&w)[R],
+                                           T (&acc)[R]) {
+  if constexpr (M > 1) {
+    if (m < M) {
+      add_run_of<T, R, M - 1>(m, xl, n, i0, p, k, w, acc);
+      return;
+    }
+  }
+  add_run<T, R, M>(xl, n, i0, p, k, w, acc);
+}
+
+'''.replace("  window_values<T, R + M - 1>(", "  window_copy<T, R + M - 1>(")
+WINDOW_LOADS = "  window_copy<T, R + M - 1>(xl, n, i0 + p.offsets[k], x);"
+WINDOW_SHFL = "  window_shfl<T, R, R + M - 1>(xl, n, i0 + p.offsets[k], x);"
+PAST_N = "  if (i0 >= n) return;\n"
+
 STAGE_LANE_START = "// Issue the copies of every window of lane xl into stage"
 STAGE_LANE_END = "// x of this thread's R rows at window element"
 
@@ -826,17 +984,42 @@ def variant(cu: str, py: str, build: str, name: str) -> tuple:
     elif name == "bulk":
         cu = _between(cu, STAGE_LANE_START, STAGE_LANE_END, BULK_HELPERS)
         cu = _once(cu, DOUBLE_BUFFER, BULK_LOOP)
+    elif name == "copy":
+        cu = _between(cu, RUN_START, KERNEL_START, COPY_RUNS)
+        cu = _once(cu, RUN_LOOP, COPY_RUN_LOOP)
+    elif name == "cap3":
+        cu = _once(cu, "constexpr int kMaxRun = 4;", "constexpr int kMaxRun = 3;")
+        py = _once(py, "K1_MAX_RUN = 4", "K1_MAX_RUN = 3")
+    elif name == "occ":
+        cu = _once(cu, KERNEL_START, KERNEL_START[:-1] + ", 5)")
+    elif re.fullmatch(r"lb\d+(d|_\d+)", name):
+        f64, f32 = (name[2:-1], "1") if name.endswith("d") else \
+            name[2:].split("_")
+        cu = _once(cu, KERNEL_START, KERNEL_START[:-1] +
+                   f", sizeof(T) == 8 ? {f64} : {f32})")
+    elif name == "shfl":
+        cu = _once(cu, RUN_START, SHFL_WINDOW + RUN_START)
+        cu = _once(cu, WINDOW_LOADS, WINDOW_SHFL)
+        cu = _once(cu, PAST_N, "")
     else:
         raise SystemExit(f"unknown variant {name}")
     return cu, py, build
 
 
 def main() -> None:
-    out = Path(sys.argv[1])
-    for name in sys.argv[2:]:
-        tree = out / name
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out", type=Path)
+    ap.add_argument("names", nargs="+")
+    ap.add_argument("--base", type=Path, default=ROOT,
+                    help="the tree whose tpusparse_torch the variants edit")
+    ap.add_argument("--prefix", default="",
+                    help="put before each variant's directory name")
+    args = ap.parse_args()
+    for name in args.names:
+        tree = args.out / f"{args.prefix}{name}"
         shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(ROOT / "tpusparse_torch", tree / "tpusparse_torch",
+        shutil.copytree(args.base / "tpusparse_torch",
+                        tree / "tpusparse_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         kernels = tree / "tpusparse_torch" / "kernels"
         paths = (tree / "tpusparse_torch" / "csrc" / "dia_masked.cu",

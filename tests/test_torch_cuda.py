@@ -107,7 +107,7 @@ def _k1_operands(name, dtype, L, dev, shift=0):
     buf = torch.zeros(L * D.num_cols + shift, dtype=dtype, device=dev)
     XT = buf[shift:].view(L, D.num_cols)
     XT.copy_(torch.from_numpy(x))
-    _, _, V = dia_stream.k1_geometry(XT.element_size())
+    V = dia_stream.k1_geometry(XT.element_size())[2]
     return D, XT, (XT.data_ptr() // XT.element_size()) % V
 
 
@@ -131,6 +131,33 @@ def test_k1_bitwise_on_edge_cases(cuda, name, dtype, L):
         assert torch.equal(Y, dia_stream.spmm_dia_masked_plain(D, XT))
         np.testing.assert_array_equal(
             Y.cpu().numpy(), emulate_k1(D, XT.cpu().numpy(), base))
+
+
+@pytest.mark.parametrize("L", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_reads_the_27_point_band_by_runs(cuda, tracer, dtype, L):
+    """K1 (K1d) on HPCG's 27-point band at 24^3 (several row blocks and
+    grid planes: nine runs of three planes) equals its plain version and
+    ``emulate_k1`` bit for bit, and adds the 18 reads its windows replace
+    to ``dia.runs`` a launch."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    D = plan_matrix(_hpcg27(24), "auto", dtype=np_dtype, device=cuda).dia
+    assert D.runs == (3,) * 9
+    x = np.random.default_rng(60 + L).standard_normal((L, D.num_cols))
+    XT = torch.from_numpy(x).to(dtype).to(cuda)
+    counter = "K1d" if dtype == torch.float64 else "K1"
+    before = _build.LAUNCHES[counter]
+    tracer.take()
+    Y = dia_stream.spmm_dia_stream_t(D, XT)
+    _, counters = tracer.take()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 1
+    assert sum(counters["dia.runs"].values()) == 18
+    assert torch.equal(Y, dia_stream.spmm_dia_masked_plain(D, XT))
+    V = dia_stream.k1_geometry(XT.element_size())[2]
+    base = (XT.data_ptr() // XT.element_size()) % V
+    np.testing.assert_array_equal(
+        Y.cpu().numpy(), emulate_k1(D, XT.cpu().numpy(), base))
 
 
 CASES = {

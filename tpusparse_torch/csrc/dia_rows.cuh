@@ -4,12 +4,14 @@
 // A thread of either kernel owns a run of R consecutive rows and writes
 // its R outputs of a lane in 16-byte stores where they lie on a 16-byte
 // boundary inside [0, n), else element by element (store_rows: K1 and
-// K5). K1 reads a run of R values of x at a plane's offset in 16-byte
-// vectors from the address rounded down to 16 bytes and shifts them into
-// place; the shift is the same for every thread of a lane and plane, so
-// the branch on it is uniform. Only a run that reaches past 0 or n takes
-// guarded element loads, which read 0 outside [0, n) (row_values: K1;
-// K5's A/B found its element loads faster).
+// K5). K1 reads a window of W consecutive values of x (the R values of a
+// plane's offset, and the M - 1 more of a run of M consecutive offsets:
+// W = R + M - 1) in the 16-byte vectors it spans, from the address
+// rounded down to 16 bytes. The shift is the same for every thread of a
+// lane and run, so K1 branches on it uniformly to an instance that reads
+// each value where it was loaded. Only a window whose vectors reach past
+// 0 or n takes guarded element loads, which read 0 outside [0, n)
+// (window_values: K1; K5's A/B found its element loads faster).
 
 #pragma once
 
@@ -78,42 +80,35 @@ __device__ __forceinline__ int misalign(const E* p, long long i) {
   return static_cast<int>((a & (kVectorBytes - 1)) / sizeof(E));
 }
 
-// v[j] = p[c + j] for j < R, 0 outside [0, n): 16-byte loads from
-// p + c - s (s = c's misalignment) where the run lies inside [0, n),
-// else guarded element loads.
-template <typename E, int R>
-__device__ __forceinline__ void row_values(const E* __restrict__ p,
-                                           long long n, long long c,
-                                           E (&v)[R]) {
+// Elements of the whole vectors that a window of W values spans when it
+// starts S elements past a vector boundary.
+template <typename E>
+__host__ __device__ constexpr int window_span(int W, int S) {
+  return (S + W + vector_elems<E>() - 1) / vector_elems<E>() *
+         vector_elems<E>();
+}
+
+// b[S + e] = p[c + e] for e < W, 0 outside [0, n), where p + c lies S
+// elements past a 16-byte boundary: the N = window_span(W, S) elements
+// from p + c - S in 16-byte loads where they lie inside [0, n), else
+// guarded element loads. S is a compile-time constant, so the values are
+// used where they were loaded, with no shift.
+template <typename E, int W, int S, int N>
+__device__ __forceinline__ void window_values(const E* __restrict__ p,
+                                              long long n, long long c,
+                                              E (&b)[N]) {
+  static_assert(N == window_span<E>(W, S), "window buffer size");
   constexpr int V = vector_elems<E>();
-  if constexpr (R % V == 0) {
-    const int s = misalign(p, c);
-    if (c - s >= 0 && c - s + R + V <= n) {
-      using VT = typename Vec<E>::type;
-      constexpr int C = R / V;
-      const VT* pv = reinterpret_cast<const VT*>(p + (c - s));
-      E buf[(C + 1) * V];
+  if (c - S >= 0 && c - S + N <= n) {
+    using VT = typename Vec<E>::type;
+    const VT* pv = reinterpret_cast<const VT*>(p + (c - S));
 #pragma unroll
-      for (int q = 0; q < C; ++q) unpack(__ldg(pv + q), buf + q * V);
-      if (s == 0) {
-#pragma unroll
-        for (int j = 0; j < R; ++j) v[j] = buf[j];
-        return;
-      }
-      unpack(__ldg(pv + C), buf + C * V);
-#pragma unroll
-      for (int t = 1; t < V; ++t) {
-        if (s == t) {
-#pragma unroll
-          for (int j = 0; j < R; ++j) v[j] = buf[j + t];
-        }
-      }
-      return;
-    }
+    for (int q = 0; q < N / V; ++q) unpack(__ldg(pv + q), b + q * V);
+    return;
   }
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    v[j] = (c + j >= 0 && c + j < n) ? __ldg(p + c + j) : E{};
+  for (int e = 0; e < W; ++e) {
+    b[S + e] = (c + e >= 0 && c + e < n) ? __ldg(p + c + e) : E{};
   }
 }
 

@@ -50,10 +50,11 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # coefficients).
 SIGNATURES = {
     # mask, xt, yt, n, L, K, offsets (host int*), vals (host float* or
-    # double*), stream
-    "tps_dia_masked": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
-    "tps_dia_masked_f64": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
-    # value bytes, out (host int[3]) -> K1's geometry (0 = known size)
+    # double*), number of runs, runs (host int*), stream
+    "tps_dia_masked": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _I32, _P, _P),
+    "tps_dia_masked_f64": (_P, _P, _P, _I64, _I32, _I32, _P, _P, _I32, _P,
+                           _P),
+    # value bytes, out (host int[4]) -> K1's geometry (0 = known size)
     "tps_dia_masked_geometry": (_I32, _P),
     # planes, plane_bf16, xt, yt, num_rows, num_cols, L, K, offsets (host
     # long long*), stream

@@ -25,6 +25,15 @@ slabs, padded transposed state) has no counterpart: the mask is flat
 package's transposed layout, unpadded.
 ``fits_stream``, ``choose_block_rows`` and the other block-geometry
 helpers go with it.
+
+A K1 thread owns R consecutive rows and reads x by runs of planes whose
+offsets follow one another (``plane_runs``, found once with the
+operand): one window of R + M - 1 values serves a run's M planes, in
+16-byte loads. On HPCG's 27-point band that is nine windows a lane
+instead of 27 reads of R values; the sums keep their offset order, so Y
+is the plain version's bit for bit. Each launch counts the reads the
+windows replace in the tracer's ``dia.runs`` (K less the number of
+runs: 18 on the 27-point band, 2 on the 7-point one).
 """
 
 from __future__ import annotations
@@ -57,11 +66,14 @@ PLANES_MAX = 64
 # (H100).
 
 # K1's geometry, mirrored from csrc/dia_masked.cu (kThreads, kRowBytes,
-# kVectorBytes) and checked against the library at every launch: threads
-# a CTA, bytes of a thread's run of rows, bytes of a vector load of x.
+# kVectorBytes, kMaxRun) and checked against the library at every launch:
+# threads a CTA, bytes of a thread's run of rows, bytes of a vector load
+# of x, planes of the longest run of consecutive offsets that a thread
+# reads as one window of x.
 K1_THREADS = 256
 K1_ROW_BYTES = 32
 K1_VECTOR_BYTES = 16
+K1_MAX_RUN = 3
 
 # K5's geometry, mirrored from csrc/dia_planes.cu (kThreads, kRowBytes;
 # kVectorBytes of csrc/dia_rows.cuh) and checked against the library at
@@ -73,10 +85,27 @@ K5_VECTOR_BYTES = 16
 
 
 def k1_geometry(itemsize: int) -> tuple:
-    """(threads a CTA, rows a thread, values a vector load) of K1
-    (itemsize 4) or K1d (itemsize 8)."""
+    """(threads a CTA, rows a thread, values a vector load, planes of
+    the longest run) of K1 (itemsize 4) or K1d (itemsize 8)."""
     return (K1_THREADS, K1_ROW_BYTES // itemsize,
-            K1_VECTOR_BYTES // itemsize)
+            K1_VECTOR_BYTES // itemsize, K1_MAX_RUN)
+
+
+def plane_runs(offsets) -> tuple:
+    """K1's runs of a band's planes: the planes of each, in plane order.
+    A run is a maximal sequence of planes whose offsets follow one
+    another (off, off + 1, ...), cut every ``K1_MAX_RUN`` planes. K1
+    reads x once for each run, as one window: HPCG's 27-point band is
+    nine runs of three, lap3d's 7-point band (1, 1, 3, 1, 1), spaced
+    planes runs of one."""
+    runs = []
+    for k, off in enumerate(offsets):
+        if (k and off == offsets[k - 1] + 1
+                and runs[-1] < K1_MAX_RUN):
+            runs[-1] += 1
+        else:
+            runs.append(1)
+    return tuple(runs)
 
 
 def k5_geometry(itemsize: int) -> tuple:
@@ -113,10 +142,11 @@ class DiaStreamDevice:
     ``mask``: (num_rows,) int32 words (the uint32 bits viewed as int32);
     ``offsets``: static tuple of K ints; ``vals``: (K,) float32 (K1) or
     float64 (K1d) on the device (read by the plain version);
-    ``vals_host``: the same K values as Python floats. ``c_offsets`` and
-    ``c_vals`` hold the offsets and the values, in ``vals``' type, as the
-    host arrays K1 (and K7) take by value, built once with the
-    operand."""
+    ``vals_host``: the same K values as Python floats. ``runs``: the
+    planes of each of K1's runs (``plane_runs``). ``c_offsets``,
+    ``c_vals`` and ``c_runs`` hold the offsets, the values in ``vals``'
+    type and the runs as the host arrays K1 (and K7, the first two) take
+    by value; all are built once with the operand."""
 
     num_rows: int
     num_cols: int
@@ -128,6 +158,9 @@ class DiaStreamDevice:
                                                 compare=False)
     c_vals: ctypes.Array = dataclasses.field(init=False, repr=False,
                                              compare=False)
+    runs: tuple = dataclasses.field(init=False, compare=False)
+    c_runs: ctypes.Array = dataclasses.field(init=False, repr=False,
+                                             compare=False)
 
     def __post_init__(self):
         K = max(len(self.offsets), 1)
@@ -135,6 +168,8 @@ class DiaStreamDevice:
                   else ctypes.c_float)
         self.c_offsets = (ctypes.c_int * K)(*self.offsets)
         self.c_vals = (scalar * K)(*self.vals_host)
+        self.runs = plane_runs(self.offsets)
+        self.c_runs = (ctypes.c_int * K)(*self.runs)
 
 
 def from_mask_words(num_rows: int, num_cols: int, offsets, vals, words,
@@ -219,7 +254,10 @@ def _launch(D: DiaStreamDevice, XT: torch.Tensor) -> torch.Tensor:
     _build.launch("tps_dia_masked_f64" if f64 else "tps_dia_masked",
                   "K1d" if f64 else "K1", XT.device, D.mask.data_ptr(),
                   XT.data_ptr(), Y.data_ptr(), n, L, len(D.offsets),
-                  ctypes.addressof(D.c_offsets), ctypes.addressof(D.c_vals))
+                  ctypes.addressof(D.c_offsets), ctypes.addressof(D.c_vals),
+                  len(D.runs), ctypes.addressof(D.c_runs))
+    # the reads of x that the runs' windows replace
+    trace.count("dia.runs", len(D.offsets) - len(D.runs))
     return Y
 
 
