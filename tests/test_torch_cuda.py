@@ -673,6 +673,37 @@ def test_k5d_matches_plain_bitwise(cuda, name, L):
 
 
 @pytest.mark.parametrize("L", [1, 16])
+def test_k5d_on_bp3_planes_counts_its_bytes(cuda, tracer, L):
+    """K5d on CEED BP3's 27 value planes (``benchmark/matrices/bp3q1.py``
+    at 12 elements a side) equals its plain version bit for bit, and
+    counts one product and the bytes of its planes, X and Y."""
+    import importlib.util
+
+    path = ROOT / "benchmark/matrices/bp3q1.py"
+    spec = importlib.util.spec_from_file_location("bench_bp3q1", path)
+    bp3q1 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bp3q1)
+    cfg = {"dtype": "float64", "elements": 12, "order": 1, "quad_points": 3,
+           "perturb": 0.2, "mesh_seed": 1}
+    p = bp3q1.generate(cfg, None, cuda)
+    plan = plan_matrix(CsrMatrix(p["num_rows"], p["num_cols"],
+                                 p["row_offsets"], p["col_indices"],
+                                 p["values"]), device=cuda)
+    D = plan.dia
+    assert isinstance(D, DiaDevice) and plan.rest is None
+    n, K = D.num_rows, len(D.offsets)
+    assert K == 27
+    XT = _x64(L + 2, cuda, (L, n))
+    tracer.take()
+    Y = dia_stream.spmm_dia_planes_t(D, XT)
+    _, counters = tracer.take()
+    torch.cuda.synchronize()
+    assert sum(counters["dia.planes_calls"].values()) == 1
+    assert sum(counters["dia.planes_bytes"].values()) == (K + 2 * L) * n * 8
+    assert torch.equal(Y, dia_stream.spmm_dia_planes_plain(D, XT))
+
+
+@pytest.mark.parametrize("L", [1, 16])
 def test_k5d_at_64_planes(cuda, L):
     """64 float64 planes, K5's limit (the design before the row runs
     staged them in a 64 KiB shared-memory tile)."""

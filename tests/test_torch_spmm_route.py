@@ -111,9 +111,14 @@ def test_other_blocks_keep_the_transposed_product(tracer, name):
     Y, counters, names = _counted(P, X)
     assert Y.shape == X.shape
     assert "spmm.nmajor" not in counters
-    assert counters == {"spmm.layout_bytes": moved(n)}
-    assert names.count("dia.layout") == (1 if moved(n) else 0)
     X2 = X.reshape(n, -1)
+    want = {"spmm.layout_bytes": moved(n)}
+    if isinstance(P.dia, DiaDevice):
+        # one K5 product: K float32 planes, X (L, n) read, Y written
+        want.update({"dia.planes_calls": 1, "dia.planes_bytes": (
+            len(P.dia.offsets) + 2 * X2.shape[1]) * n * 4})
+    assert counters == want
+    assert names.count("dia.layout") == (1 if moved(n) else 0)
     if isinstance(P.dia, DiaDevice):
         want = spmm_dia_planes_t(P.dia, X2.T.contiguous()).T
     else:

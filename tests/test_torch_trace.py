@@ -239,6 +239,11 @@ def test_spmm_counts_its_layout_change_at_the_dia_boundary(tracer, form):
     layout = [s for s in spans if s.name == "dia.layout"]
     assert [s.root for s in layout] == ([root.id] if copies else [])
     routed = {"spmm.nmajor": {root.id: 1}} if form == "masked" else {}
+    if form == "planes":
+        # one K5 product: K float32 planes, X (16, n) read, Y written
+        K = len(plan.dia.offsets)
+        routed = {"dia.planes_calls": {root.id: 1},
+                  "dia.planes_bytes": {root.id: (K + 2 * 16) * n * 4}}
     assert counters == {"spmm.layout_bytes": {
         root.id: 2 * n * 16 * 4 if copies else 0}, **routed}
 

@@ -33,7 +33,10 @@ operand): one window of R + M - 1 values serves a run's M planes, in
 instead of 27 reads of R values; the sums keep their offset order, so Y
 is the plain version's bit for bit. Each launch counts the reads the
 windows replace in the tracer's ``dia.runs`` (K less the number of
-runs: 18 on the 27-point band, 2 on the 7-point one).
+runs: 18 on the 27-point band, 2 on the 7-point one). Each K5 product,
+on the card or through the plain version, counts itself in
+``dia.planes_calls`` and the bytes of its planes, x and y in
+``dia.planes_bytes``.
 """
 
 from __future__ import annotations
@@ -345,8 +348,13 @@ def spmm_dia_planes_t(D: DiaDevice, XT: torch.Tensor) -> torch.Tensor:
     the planes' compute type (``planes_value_dtype``) -> A @ X as (L,
     num_rows). K5 (float32 or bf16 planes) or K5d (float64 planes) on a
     CUDA tensor, the plain version on a CPU tensor; any other device
-    raises."""
+    raises. Each call counts 1 in the tracer's ``dia.planes_calls`` and
+    the bytes the product reads and writes as the operand lays them out
+    in ``dia.planes_bytes``: the K planes, x and y."""
     _check_planes(D, XT)
+    trace.count("dia.planes_calls")
+    trace.count("dia.planes_bytes", D.data.numel() * D.data.element_size()
+                + XT.shape[0] * (D.num_cols + D.num_rows) * XT.element_size())
     if XT.device.type == "cuda":
         return _launch_planes(D, XT)
     if XT.device.type == "cpu":
